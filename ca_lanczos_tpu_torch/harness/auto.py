@@ -1,0 +1,292 @@
+"""Escalation-routed eigensolve: the production "just solve it" entry.
+
+Counterpart of ``ca_lanczos_tpu/harness/auto.py``.  ``solve_auto`` routes a
+raw matrix to an operator on the chosen device, probes the spectrum to
+order the drivers, walks the escalation ladder until a driver converges,
+and optionally polishes the converged block in f64 (the two-stage
+pipeline: ``polish=``, ``over_lock=``).
+
+Ported legs: the explicit-restart driver with ``engine="fused"``
+(``solvers.fused_restarted``).  The host ``restarted_ca_lanczos`` and the
+``impl_restarted_ca_lanczos`` legs raise ``NotImplementedError`` naming
+their ROADMAP item; no other driver stands in for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ca_lanczos_tpu_torch.config import LanczosConfig, Orth
+from ca_lanczos_tpu_torch.harness.matrix_info import recommend_solver
+
+
+@dataclasses.dataclass
+class AutoResult:
+    eigs: np.ndarray
+    Q_conv: Optional[torch.Tensor]
+    converged: bool
+    n_restarts: int
+    solver: str  # driver that produced the result
+    escalated: bool  # True when the first-choice driver failed
+    route: Optional[object] = None  # OperatorRoute when A was raw input
+    # true absolute residuals ||A x - w x|| after the f64 polish
+    # (None when polish=0); aligned with eigs
+    polish_resid: Optional[np.ndarray] = None
+    # host wall seconds per stage: route, probe, solve, polish (each ends
+    # with the device synchronised)
+    stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def _n_locked(res) -> int:
+    """Number of finite (genuinely locked) eigenvalues in a driver result."""
+    e = np.atleast_1d(np.asarray(res.eigs, np.float64))
+    return int(np.sum(np.isfinite(e)))
+
+
+_M_LARGE = 96  # larger-basis rescue rung (see _ladder)
+
+
+def _ladder(cfg: LanczosConfig, first: str, second: str,
+            max_lanczos: Optional[int] = None):
+    """Escalation ladder (same rungs as the TPU package): the two
+    probe-ordered drivers at the case's config, then full-orth, s=4
+    full-orth and m=96 rescue legs.  Returns [(driver, cfg, label,
+    m_override), ...]."""
+    attempts = [(first, cfg, first, None), (second, cfg, second, None)]
+    if cfg.orth != Orth.FULL:
+        c = dataclasses.replace(cfg, orth=Orth.FULL)
+        attempts.append(
+            ("impl_restarted_ca_lanczos", c, "impl_restarted_ca_lanczos[orth=full]", None))
+    if cfg.s > 4:
+        c4 = dataclasses.replace(cfg, s=4, orth=Orth.FULL)
+        attempts.append(
+            ("impl_restarted_ca_lanczos", c4, "impl_restarted_ca_lanczos[s=4,orth=full]",
+             None))
+        attempts.append(
+            ("restarted_ca_lanczos", c4, "restarted_ca_lanczos[s=4,orth=full]", None))
+    if max_lanczos is not None and max_lanczos < _M_LARGE:
+        cf = dataclasses.replace(cfg, orth=Orth.FULL)
+        attempts.append(
+            ("impl_restarted_ca_lanczos", cf,
+             f"impl_restarted_ca_lanczos[orth=full,m={_M_LARGE}]", _M_LARGE))
+    return attempts
+
+
+def _escalate(run, attempts):
+    """Walk the ladder until a driver converges; otherwise keep the attempt
+    that locked the most (finite) pairs.  Returns (result, label, escalated)."""
+    best = best_label = None
+    best_i = 0
+    for i, (name, c, label, m) in enumerate(attempts):
+        res = run(name, c, m)
+        if res.converged:
+            return res, label, i > 0
+        if best is None or _n_locked(res) > _n_locked(best):
+            best, best_label, best_i = res, label, i
+    return best, best_label, best_i > 0
+
+
+def _run(solver: str, A, r, max_lanczos: int, cfg: LanczosConfig,
+         engine: str = "host", cycles_per_call=None):
+    if solver == "restarted_ca_lanczos":
+        if engine == "fused":
+            from ca_lanczos_tpu_torch.solvers.fused_restarted import (
+                fused_restarted_ca_lanczos,
+            )
+
+            return fused_restarted_ca_lanczos(
+                A, r, max_lanczos,
+                n_wanted=cfg.n_wanted, s=cfg.s, basis=cfg.basis,
+                tol=cfg.tol, max_restarts=cfg.max_restarts,
+                mixed_precision=cfg.orth_params.mixed_precision,
+                cycles_per_call=cycles_per_call,
+            )
+        raise NotImplementedError(
+            "the host restarted_ca_lanczos driver is not ported yet "
+            "(ROADMAP A.5); use engine='fused'"
+        )
+    raise NotImplementedError(
+        f"{solver} is not ported yet (ROADMAP A.11)"
+    )
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def solve_auto(
+    A,
+    r,
+    max_lanczos: int,
+    cfg: Optional[LanczosConfig] = None,
+    probe_steps: int = 40,
+    engine: str = "host",
+    which: str = "largest",
+    cycles_per_call: Optional[int] = None,
+    polish: int = 0,
+    over_lock: int = 0,
+    polish_depth: int = 4,
+    device="cpu",
+    **route_kwargs,
+) -> AutoResult:
+    """Solve for ``cfg.n_wanted`` extreme eigenpairs, escalating between
+    drivers until one converges (module docstring).
+
+    ``A`` may be a port operator (it keeps its device), or any square
+    scipy.sparse / dense matrix, routed by ``ops.formats.make_operator``
+    onto ``device`` (``route_kwargs`` forwarded); when the route reorders,
+    ``r`` is encoded and ``Q_conv`` decoded here.
+
+    ``which="smallest"`` solves -A and negates the eigenvalues back.
+
+    ``polish`` > 0 runs that many f64 block-Krylov Rayleigh-Ritz passes on
+    the converged block (solvers.polish): on the operator's device when
+    the raw f64 input is DIA-representable and unpermuted, on the host
+    (scipy CSR in f64) otherwise.  ``over_lock`` locks that many EXTRA
+    pairs during the solve so the polish can discard sloppy directions
+    and still return ``cfg.n_wanted`` accurate pairs.
+
+    TF32 is switched off for matmuls and cuDNN (process-wide PyTorch
+    flags): the f32 Gram products must not round to TF32.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or LanczosConfig()
+    times: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    route = None
+    raw = None  # the caller's raw matrix (the f64 source for the polish)
+    if not hasattr(A, "matvec"):
+        from ca_lanczos_tpu_torch.ops.formats import make_operator
+
+        raw = A
+        A, route = make_operator(A, device=device, **route_kwargs)
+        r = torch.as_tensor(route.apply(np.asarray(r)), dtype=A.dtype, device=A.device)
+    dev = A.device
+    _sync(dev)
+    times["route"] = time.perf_counter() - t0
+    if polish > 0 or over_lock > 0:
+        from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+
+        if raw is None and not isinstance(A, DiaMatrix):
+            raise ValueError(
+                "polish/over_lock need an f64 operator source: pass the "
+                "raw scipy matrix to solve_auto, or a DiaMatrix operator"
+            )
+    n_want0 = cfg.n_wanted
+    if over_lock:
+        cfg = dataclasses.replace(cfg, n_wanted=cfg.n_wanted + over_lock)
+    if which not in ("largest", "smallest"):
+        raise ValueError(f"which must be 'largest' or 'smallest', got {which!r}")
+    if which == "smallest":
+        from ca_lanczos_tpu_torch.ops.formats import negate_operator
+
+        A = negate_operator(A)
+    t0 = time.perf_counter()
+    rec = recommend_solver(A, n_wanted=cfg.n_wanted, probe_steps=probe_steps)
+    times["probe"] = time.perf_counter() - t0
+    first = rec["driver"]
+    second = (
+        "impl_restarted_ca_lanczos" if first == "restarted_ca_lanczos"
+        else "restarted_ca_lanczos"
+    )
+    t0 = time.perf_counter()
+    res, solver, escalated = _escalate(
+        lambda name, c, m: _run(name, A, r, m or max_lanczos, c, engine, cycles_per_call),
+        _ladder(cfg, first, second, max_lanczos),
+    )
+    _sync(dev)
+    times["solve"] = time.perf_counter() - t0
+    Q = res.Q_conv
+    if route is not None and route.perm is not None and Q is not None:
+        Q = route.restore(Q)
+    eigs = np.asarray(res.eigs)
+    presid = None
+    if polish > 0 and Q is not None and Q.shape[1] > 0:
+        # Polish in the ORIGINAL frame against the f64 source; the solve
+        # frame's negation (which="smallest") is re-applied so the RR
+        # keeps the wanted end.
+        t0 = time.perf_counter()
+        w, presid, Qp = _polish_block(raw, A, route, Q, which, polish, polish_depth)
+        _sync(dev)
+        times["polish"] = time.perf_counter() - t0
+        keep = min(n_want0, len(w))
+        eigs, presid = w[:keep], presid[:keep]
+        Q = Qp[:, :keep]
+        solver = solver + f"+polish{polish}"
+    if which == "smallest":
+        eigs = -eigs
+    return AutoResult(
+        eigs=eigs,
+        Q_conv=Q,
+        converged=bool(res.converged),
+        n_restarts=int(res.n_restarts),
+        solver=solver,
+        escalated=escalated,
+        route=route,
+        polish_resid=presid,
+        stage_seconds=times,
+    )
+
+
+def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int):
+    """f64 Rayleigh-Ritz polish of a converged block in the caller's
+    frame: device path for DIA-representable f64 sources, host path
+    (scipy CSR in f64) otherwise.  Returns (w desc-in-solve-frame, resid,
+    Q (n, k) tensor) — w/resid aligned with Q's columns."""
+    import scipy.sparse as sp
+
+    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+    from ca_lanczos_tpu_torch.solvers.polish import (
+        rayleigh_ritz_polish,
+        rayleigh_ritz_polish_host,
+    )
+
+    sgn = -1.0 if which == "smallest" else 1.0
+    dev = A_solve.device
+    if raw is not None and (route is None or route.perm is None):
+        coo = sp.coo_matrix(raw)
+        # Count distinct diagonals BEFORE any dia conversion (scattered
+        # sparsity would materialize O(n^2) planes).
+        offsets = np.unique(coo.col.astype(np.int64) - coo.row)
+        if len(offsets) <= 48:  # DIA-representable: device polish
+            d = sp.dia_matrix(sp.csr_matrix(raw).astype(np.float64))
+            A64 = DiaMatrix(
+                data=torch.as_tensor(sgn * _dia_rows(d), device=dev),
+                offsets=tuple(int(o) for o in d.offsets),
+            )
+            return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
+    if raw is None and isinstance(A_solve, DiaMatrix):
+        # Framework DIA input: polish against its planes upcast to f64
+        # (representation-limited if they were stored f32).
+        A64 = DiaMatrix(data=A_solve.data.double(), offsets=A_solve.offsets)
+        return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
+    # Host path: general sparsity (or permuted routes) against the raw f64
+    # matrix.  scipy's CSR product in f64 takes the place of the TPU
+    # package's native OpenMP SpMM (which silently drops columns >= 64).
+    mm = sp.csr_matrix(raw).astype(np.float64)
+    w, resid, Qp = rayleigh_ritz_polish_host(
+        (lambda Z: -(mm @ Z)) if sgn < 0 else (lambda Z: mm @ Z),
+        Q, iters=iters, depth=depth,
+    )
+    return w, resid, torch.from_numpy(Qp)
+
+
+def _dia_rows(d) -> np.ndarray:
+    """scipy dia_matrix data -> DiaMatrix row convention
+    (A[i, i+k] = data[row_of_k, i]; scipy stores A[i, i+k] at
+    data[row_of_k, i+k])."""
+    n = d.shape[0]
+    out = np.zeros((len(d.offsets), n), np.float64)
+    for j, k in enumerate(d.offsets):
+        if k >= 0:
+            out[j, : n - k] = d.data[j, k:n]
+        else:
+            out[j, -k:] = d.data[j, : n + k]
+    return out

@@ -1,0 +1,50 @@
+"""Solver-selection probe (counterpart of
+``ca_lanczos_tpu/harness/matrix_info.py``; reference get_matrix_info.m)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ca_lanczos_tpu_torch.config import Orth
+from ca_lanczos_tpu_torch.ops.spmv import Operator
+from ca_lanczos_tpu_torch.solvers.lanczos import lanczos
+
+
+def recommend_solver(
+    A: Operator,
+    n_wanted: int = 10,
+    probe_steps: int = 40,
+    cluster_rel_gap: float = 1.0e-3,
+    seed: int = 0,
+) -> Dict[str, Any]:
+    """Driver-selection PRIOR from a short full-orth Lanczos probe: the
+    explicit thick restart (``restarted_ca_lanczos``) fails on
+    clustered-top spectra, where the implicitly-restarted driver with
+    locking (``impl_restarted_ca_lanczos``) converges.  The probe measures
+    the relative gaps among the top ``n_wanted`` Ritz values; it only
+    orders ``solve_auto``'s escalation ladder.  The start vector is the
+    JAX package's (``default_rng(seed).random(n)``).
+
+    Returns {"driver", "clustered", "min_rel_gap", "top_ritz"}.
+    """
+    n = A.shape[0]
+    rng = np.random.default_rng(seed)
+    r = torch.as_tensor(rng.random(n), dtype=getattr(A, "dtype", torch.float64),
+                        device=getattr(A, "device", "cpu"))
+    steps = min(probe_steps, n - 1)
+    boot = lanczos(A, r, steps, Orth.FULL)
+    d = np.linalg.eigvalsh(np.asarray(boot.T)[:steps, :steps])
+    scale = max(float(np.abs(d).max()), np.finfo(np.float64).tiny)
+    top = np.sort(d)[::-1][: min(n_wanted, len(d))]
+    gaps = np.abs(np.diff(top)) / scale
+    min_gap = float(gaps.min()) if gaps.size else 1.0
+    clustered = min_gap < cluster_rel_gap
+    return {
+        "driver": "impl_restarted_ca_lanczos" if clustered else "restarted_ca_lanczos",
+        "clustered": clustered,
+        "min_rel_gap": min_gap,
+        "top_ritz": top,
+    }

@@ -1,0 +1,174 @@
+"""Final f64-operator Rayleigh–Ritz polish of a converged block.
+
+Counterpart of ``ca_lanczos_tpu/solvers/polish.py``.  A loose f32 solve
+inherits the f32 rounding of its SpMVs and the f32 REPRESENTATION error
+of the matrix (~eps_f32 * ||A||, a ~6e-8 relative floor no f32-side
+iteration crosses).  This pass runs after the solve against the f64
+operator planes: block-Krylov Rayleigh–Ritz, residual expansion of depth
+``depth`` per pass.
+
+PRECISION SPLIT (kept from the TPU package, docstring :19-34): the panel
+GEMMs — CGS projections, CholQR2, fast-pass RR assembly — run in f32;
+float64 appears where it buys accuracy:
+
+* the SpMV against the TRUE f64 planes;
+* residual formation AQ - Q w in f64 before the DIRECTION is cast to f32;
+* the final per-vector Rayleigh quotients and residuals (f64 elementwise
+  dots), and the final pass's generalized Gram pair G = Z^T A Z,
+  M = Z^T Z, solved on the host (scipy ``eigh(G, M)``).
+
+Dropped TPU-only workarounds: the row-major (k, n) panels (TPU lanes pad
+the minor dimension; the card does not) and the byte-budgeted f64 chunks
+(a (11M, 65) f64 panel is 5.7 GB, which fits 80 GB).  Panels here are
+(n, k) like the host variant.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import scipy.linalg as sla
+import torch
+
+from ca_lanczos_tpu_torch.ops.qr import _chol_safe
+from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+
+
+def _cholqr2_f32(Z: torch.Tensor) -> torch.Tensor:
+    for _ in range(2):
+        L = _chol_safe(Z.T @ Z)
+        Z = torch.linalg.solve_triangular(L.T, Z, upper=True, left=False)
+    return Z
+
+
+def _unit_cols(B: torch.Tensor) -> torch.Tensor:
+    return B / torch.clamp_min(torch.linalg.norm(B, dim=0), 1e-300)[None, :]
+
+
+def _rq64(A64, Q: torch.Tensor):
+    """Per-vector f64 Rayleigh quotients, residual norms, and the f32
+    residual DIRECTION block."""
+    Q64 = Q.double()
+    AQ = A64.matvec(Q64)
+    w = torch.sum(Q64 * AQ, dim=0) / torch.sum(Q64 * Q64, dim=0)
+    R = AQ - w[None, :] * Q64
+    return w, torch.linalg.norm(R, dim=0), _unit_cols(R.float())
+
+
+def _polish_pass(A64, A32, X: torch.Tensor, k: int, depth: int, final: bool):
+    """One block-Krylov RR pass on the f32 (n, k) block X; returns
+    (w (k,) f64 Rayleigh quotients, resid (k,) f64, Q (n, k) f32)."""
+    Q = _cholqr2_f32(X.float())
+    _, _, B = _rq64(A64, Q)
+
+    stages = [Q]
+    for d in range(depth):
+        for _ in range(2):  # CGS2 against previous stages (f32)
+            for Sx in stages:
+                B = B - Sx @ (Sx.T @ B)
+        B = _cholqr2_f32(_unit_cols(B))
+        stages.append(B)
+        if d < depth - 1:
+            # Krylov expansion stages ride the f32 twin: only the FIRST
+            # residual direction is cancellation-sensitive (f64 in _rq64).
+            B = _unit_cols(A32.matvec(B))
+
+    Z = torch.cat(stages, dim=1)  # (n, m k)
+    if final:
+        # f64 generalized Gram pair: the f32 Gram's ~sqrt(n)*eps_f32 error
+        # would re-inject subspace mixing at every rotation.
+        Z64 = Z.double()
+        G = (Z64.T @ A64.matvec(Z64)).cpu().numpy()
+        M = (Z64.T @ Z64).cpu().numpy()
+        wa, Ua = sla.eigh((G + G.T) / 2, (M + M.T) / 2)
+    else:
+        G = (Z.T @ A32.matvec(Z)).double().cpu().numpy()
+        wa, Ua = np.linalg.eigh((G + G.T) / 2)
+    order = np.argsort(wa)[::-1][:k]
+    Uk = torch.as_tensor(np.ascontiguousarray(Ua[:, order]), dtype=torch.float32,
+                         device=Z.device)
+    Q = _cholqr2_f32(Z @ Uk)
+    w, resid, _ = _rq64(A64, Q)
+    return w.cpu().numpy(), resid.cpu().numpy(), Q
+
+
+def rayleigh_ritz_polish(A64, X, iters: int = 3, depth: int = 4
+                         ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
+    """Polish a locked block against the f64 operator on its device.
+
+    A64: a DiaMatrix with FLOAT64 planes (built from the host's f64
+    arrays — not the solve's f32 streaming copy).
+    X: (n, k) converged block, any float dtype, natural row order.
+    Returns (eigs desc (k,) f64, true absolute residuals ||Ax - wx|| (k,)
+    f64, polished orthonormal block (n, k) f32 on A64's device)."""
+    if A64.dtype != torch.float64:
+        raise ValueError(f"polish needs f64 operator planes, got {A64.dtype}")
+    k = int(X.shape[1])
+    # f32 twin for the non-cancellation-sensitive applies
+    A32 = DiaMatrix(data=A64.data.float(), offsets=A64.offsets)
+    Q = torch.as_tensor(X, device=A64.device).float()
+    w = resid = None
+    total = max(int(iters), 1)
+    for it in range(total):
+        w, resid, Q = _polish_pass(A64, A32, Q, k, int(depth), final=(it == total - 1))
+    return w, resid, Q
+
+
+def rayleigh_ritz_polish_host(matvec, X, iters: int = 3, depth: int = 4
+                              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host f64 polish, for operators the device polish does not take
+    (general sparsity, permuted routes).  Same algorithm as the TPU
+    package's host variant; the panel algebra runs on CPU tensors (with it
+    in numpy, the 4,194,304-row flagship polish took 318.26 s on the host
+    of an NVIDIA H100 80GB HBM3 at 700 W; with CPU tensors, 99.85 s).
+
+    matvec: callable (n, j) f64 numpy -> (n, j) f64 numpy applying the
+    TRUE f64 operator (e.g. a scipy.sparse matrix's __matmul__).
+    X: (n, k) block (numpy or a tensor, any float dtype).
+    Returns (w desc (k,) f64, true residuals (k,), Q (n, k) f64 numpy)."""
+    X = torch.as_tensor(np.asarray(X.detach().cpu() if isinstance(X, torch.Tensor) else X),
+                        dtype=torch.float64)
+    k = X.shape[1]
+
+    def apply(Z):
+        return torch.from_numpy(np.asarray(matvec(Z.contiguous().numpy()), np.float64))
+
+    def orth(Z):
+        # CholQR2: orthonormal to roundoff in f64 for the conditioning here.
+        for _ in range(2):
+            G = Z.T @ Z
+            L = torch.linalg.cholesky(
+                G + torch.trace(G) * 1e-15 * torch.eye(len(G), dtype=G.dtype))
+            Z = torch.linalg.solve_triangular(L.T, Z, upper=True, left=False)
+        return Z.contiguous()
+
+    def unit(Z):
+        return Z / torch.clamp_min(torch.linalg.norm(Z, dim=0), 1e-300)[None, :]
+
+    Q = orth(X)
+    AQ = apply(Q)
+    w = torch.sum(Q * AQ, dim=0)
+
+    for _ in range(max(int(iters), 1)):
+        stages = [Q]
+        B = unit(AQ - Q * w[None, :])
+        for d in range(depth):
+            for _ in range(2):
+                for Sx in stages:
+                    B = torch.addmm(B, Sx, Sx.T @ B, alpha=-1.0)  # B - Sx (Sx^T B)
+            B = orth(unit(B))
+            stages.append(B)
+            if d < depth - 1:
+                B = unit(apply(B))
+        Z = torch.cat(stages, dim=1)  # (n, mk), orthonormal-ish
+        AZ = apply(Z)
+        G = (Z.T @ AZ).numpy()
+        M = (Z.T @ Z).numpy()
+        wa, Ua = sla.eigh((G + G.T) / 2, (M + M.T) / 2)
+        order = np.argsort(wa)[::-1][:k]
+        Q = orth(Z @ torch.from_numpy(np.ascontiguousarray(Ua[:, order])))
+        AQ = apply(Q)
+        w = torch.sum(Q * AQ, dim=0)
+    resid = torch.linalg.norm(AQ - Q * w[None, :], dim=0)
+    return w.numpy(), resid.numpy(), Q.numpy()

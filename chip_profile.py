@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Profile the stages of the PyTorch/CUDA port's banded main path on one GPU.
+
+Run from the root of a checkout:  ``python3 chip_profile.py``
+
+It takes chip_smoke.py's two configurations (A: the 11,010,048-row f32
+flagship tridiagonal with prefer="dia", solved through K1; B: 4,194,304 rows
+with prefer="auto", solved on the interleaved route through K3), runs each
+stage of ``solve_auto`` on its own and prints, per configuration:
+
+* route seconds (``make_operator``) and probe seconds (``recommend_solver``);
+* the fused solve's wall seconds unprofiled, twice (the first run pays the
+  first use of cuBLAS/cuSOLVER), restarts and locked pairs;
+* the same solve under ``torch.profiler``: device busy seconds (the union
+  of the device's kernel and copy intervals), the idle share
+  ``1 - busy / unprofiled wall`` (the profiler slows the host, so its own
+  wall is not used), the device ms per call of each hand-written kernel,
+  and the top 15 operators and kernels by device time;
+* the polish: for A the host preparation of the f64 planes (offset scan,
+  scipy DIA conversion) and the device polish, profiled like the solve;
+  for B (a permuted route) the host polish's wall seconds.
+
+Host-clock seconds end with the device synchronised.  Without a CUDA
+device it exits non-zero.
+"""
+
+import sys
+import time
+
+import numpy as np
+
+import chip_smoke
+
+DEVICE = "cuda"
+ROWS = 15  # rows of each profiler table
+KERNELS = ("dia_powers_fused_kernel", "dia_power_step_kernel", "ilv_powers_kernel")
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profiled(torch, label: str, fn, wall: float):
+    """Run fn under torch.profiler; print busy time, idle share against the
+    unprofiled ``wall``, per-call kernel times and the top rows by device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, pwall = timed(torch, fn)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:  # union of device intervals, microseconds
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    if not spans:
+        print(f"{label} profiled: wall {pwall:.3f}s; the profiler recorded no device "
+              "events, device time not measured")
+        return
+    busy *= 1e-6
+    print(f"{label} profiled: wall {pwall:.3f}s device busy {busy:.3f}s idle share "
+          f"{1.0 - busy / wall:.3f} (vs unprofiled wall {wall:.3f}s)")
+    for avg in prof.key_averages():
+        if any(k in avg.key for k in KERNELS):
+            t = avg.self_device_time_total
+            print(f"{label} kernel {avg.key.split('(')[0]}: {avg.count} calls, "
+                  f"{t / avg.count / 1e3:.4f} ms/call, {t / 1e6:.4f}s")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=ROWS,
+                                    max_name_column_width=60))
+
+
+def configuration(torch, label: str, n: int, prefer: str) -> None:
+    import scipy.sparse as sp
+
+    from ca_lanczos_tpu_torch.config import LanczosConfig
+    from ca_lanczos_tpu_torch.harness import auto
+    from ca_lanczos_tpu_torch.harness.matrix_info import recommend_solver
+    from ca_lanczos_tpu_torch.ops.formats import make_operator
+    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+    from ca_lanczos_tpu_torch.solvers.fused_restarted import fused_restarted_ca_lanczos
+    from ca_lanczos_tpu_torch.solvers.polish import rayleigh_ritz_polish
+
+    a, _ = chip_smoke.flagship(n)
+    a32 = a.astype(np.float32)
+    cfg = LanczosConfig(n_wanted=13, s=8, tol=1e-4, max_restarts=200)  # 10 + over_lock 3
+    (A, route), t = timed(torch, lambda: make_operator(a32, prefer=prefer, device=DEVICE))
+    print(f"== {label}: n={n} prefer={prefer} route={route.format} make_operator {t:.3f}s")
+    r = torch.as_tensor(route.apply(np.ones(n)), dtype=A.dtype, device=A.device)
+    rec, t = timed(torch, lambda: recommend_solver(A, n_wanted=cfg.n_wanted, probe_steps=40))
+    print(f"{label} probe {t:.3f}s -> {rec['driver']}")
+
+    def solve():
+        return fused_restarted_ca_lanczos(A, r, 32, n_wanted=cfg.n_wanted, s=cfg.s,
+                                          basis=cfg.basis, tol=cfg.tol,
+                                          max_restarts=cfg.max_restarts)
+
+    for rep in range(2):
+        res, wall = timed(torch, solve)
+        print(f"{label} solve unprofiled rep{rep}: {wall:.3f}s "
+              f"restarts={res.n_restarts} nconv={res.nconv} converged={res.converged}")
+    profiled(torch, f"{label} solve", solve, wall)
+    Q = route.restore(res.Q_conv)
+    if route.perm is None:
+        coo = sp.coo_matrix(a)
+        _, t_off = timed(torch, lambda: np.unique(coo.col.astype(np.int64) - coo.row))
+        d, t_dia = timed(torch, lambda: sp.dia_matrix(sp.csr_matrix(a).astype(np.float64)))
+        A64 = DiaMatrix(data=torch.as_tensor(auto._dia_rows(d), device=DEVICE),
+                        offsets=tuple(int(o) for o in d.offsets))
+        print(f"{label} polish host prep: offsets {t_off:.3f}s dia planes {t_dia:.3f}s")
+        polish = lambda: rayleigh_ritz_polish(A64, Q, iters=10, depth=4)  # noqa: E731
+        polish()  # first use
+        _, wall = timed(torch, polish)
+        print(f"{label} device polish unprofiled: {wall:.3f}s")
+        profiled(torch, f"{label} device polish", polish, wall)
+    else:
+        _, t = timed(torch, lambda: auto._polish_block(a, A, route, Q, "largest", 10, 4))
+        print(f"{label} host polish: {t:.3f}s")
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile.py: no CUDA device visible; this script needs one GPU",
+              file=sys.stderr)
+        return 2
+    chip_smoke.phase0(torch)
+    configuration(torch, "A", 11010048, "dia")
+    configuration(torch, "B", 4194304, "auto")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,200 @@
+"""PyTorch port, the slice as a whole: ``solve_auto`` (route -> probe ->
+fused solve -> f64 polish) against the JAX package on the two-stage
+operator of tests/test_harness.py TestTwoStagePolish, ``make_operator``'s
+interleaved route, the legs that are not ported, and the package's
+independence from JAX.
+
+Eigenvalues: rtol 1e-10 against JAX and against the exact tridiagonal
+eigenvalues of the matrix the polish sees (the f32-rounded one for f32
+input); the smallest end is 1e-7 against the exact values (see its test)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.linalg as sla
+import scipy.sparse as sp
+import torch
+
+from ca_lanczos_tpu.config import LanczosConfig as JConfig
+from ca_lanczos_tpu.harness.auto import solve_auto as jsolve_auto
+from ca_lanczos_tpu.ops.formats import make_operator as jmake_operator
+from ca_lanczos_tpu_torch.config import LanczosConfig
+from ca_lanczos_tpu_torch.harness.auto import solve_auto
+from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
+from ca_lanczos_tpu_torch.ops.formats import make_operator
+from ca_lanczos_tpu_torch.utils.interop import operator_from_numpy
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers per
+    core set, and torch's OpenMP pools oversubscribe the cores otherwise."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _op(n=4096):
+    d = np.linspace(1.0, 90.0, n)
+    d[-5:] = np.linspace(95.0, 100.0, 5)
+    off = np.random.default_rng(0).standard_normal(n - 1) * 1e-3
+    return sp.diags([off, d, off], [-1, 0, 1], format="csr")
+
+
+def _exact(a):
+    """Eigenvalues (ascending) of the matrix as the f64 polish sees it."""
+    a64 = a.astype(np.float64)
+    return sla.eigh_tridiagonal(a64.diagonal(0), a64.diagonal(1), eigvals_only=True)
+
+
+@pytest.mark.parametrize("dtype,prefer", [
+    (np.float64, "dia"), (np.float64, "auto"), (np.float32, "dia"), (np.float32, "auto"),
+])
+def test_solve_auto_matches_jax(dtype, prefer):
+    a = _op().astype(dtype)
+    r = np.random.default_rng(1).standard_normal(a.shape[0])
+    kw = dict(engine="fused", polish=6, over_lock=3, prefer=prefer)
+    cfg = dict(n_wanted=5, s=8, tol=1e-4, max_restarts=100)
+    rj = jsolve_auto(a, r, 32, JConfig(**cfg), **kw)
+    rt = solve_auto(a, r, 32, LanczosConfig(**cfg), **kw)
+    assert rt.converged and rt.solver == rj.solver == "restarted_ca_lanczos+polish6"
+    assert rt.route.format == rj.route.format == "dia"
+    assert rt.route.perm is None and rj.route.perm is None
+    assert not rt.escalated
+    got = np.sort(rt.eigs)[::-1]
+    np.testing.assert_allclose(got, np.sort(rj.eigs)[::-1], rtol=1e-10)
+    np.testing.assert_allclose(got, _exact(a)[::-1][:5], rtol=1e-10)
+    assert rt.Q_conv.shape == (a.shape[0], 5) and rt.polish_resid.shape == (5,)
+    assert set(rt.stage_seconds) == {"route", "probe", "solve", "polish"}
+
+
+def test_solve_auto_smallest_matches_jax():
+    # TestTwoStagePolish.test_polish_smallest_end's configuration.  The
+    # bottom-end gaps are ~2e-2 on values ~1, so six polish passes land
+    # 1e-8-grade against the exact values in BOTH packages (the JAX test
+    # asserts 1e-7); the two packages agree to 1e-10.
+    a = _op()
+    r = np.random.default_rng(2).standard_normal(a.shape[0])
+    kw = dict(engine="fused", polish=6, over_lock=2, which="smallest")
+    cfg = dict(n_wanted=3, s=4, tol=1e-5, max_restarts=100)
+    rj = jsolve_auto(a, r, 32, JConfig(**cfg), **kw)
+    rt = solve_auto(a, r, 32, LanczosConfig(**cfg), **kw)
+    assert rt.converged and rt.solver == rj.solver and rt.route.format == rj.route.format
+    got = np.sort(rt.eigs)
+    np.testing.assert_allclose(got, np.sort(rj.eigs), rtol=1e-10)
+    np.testing.assert_allclose(got, _exact(a)[:3], rtol=1e-7)
+
+
+@pytest.mark.parametrize("n,prefer", [(16384, "ilv"), (10000, "ilv"), (16384, "auto")])
+def test_interleaved_route_matches_jax(n, prefer):
+    a = _op(n).astype(np.float32)
+    Aj, rj = jmake_operator(a, prefer=prefer, ilv=True)
+    At, rt = make_operator(a, prefer=prefer, ilv=True)
+    assert rt.format == rj.format == "ilv"
+    assert rt.n_orig == rj.n_orig == n
+    np.testing.assert_array_equal(rt.perm, rj.perm)
+    assert isinstance(At, IlvDiaMatrix)
+    ref = operator_from_numpy(Aj)
+    torch.testing.assert_close(At.data_il, ref.data_il, rtol=0, atol=0)
+    torch.testing.assert_close(At.dia_data, ref.dia_data, rtol=0, atol=0)
+    # apply/restore: numpy and tensors agree and invert each other
+    x = np.random.default_rng(2).standard_normal(n)
+    xe = rt.apply(x)
+    np.testing.assert_array_equal(rt.apply(torch.as_tensor(x)).numpy(), xe)
+    np.testing.assert_array_equal(rt.restore(xe), x)
+    np.testing.assert_array_equal(rt.restore(torch.as_tensor(xe)).numpy(), x)
+
+
+def test_auto_route_on_cpu_stays_dia_like_jax():
+    a = _op(16384).astype(np.float32)
+    _, rj = jmake_operator(a)
+    _, rt = make_operator(a)
+    assert rt.format == rj.format == "dia"
+
+
+def test_permuted_route_polishes_on_host():
+    # forced interleave: the polish takes the host branch, as in JAX
+    a = _op(16384)
+    r = np.random.default_rng(3).standard_normal(16384)
+    res = solve_auto(a, r, 32, LanczosConfig(n_wanted=3, s=8, tol=1e-6, max_restarts=100),
+                     engine="fused", polish=4, over_lock=2, prefer="ilv")
+    assert res.route.format == "ilv" and res.converged
+    np.testing.assert_allclose(np.sort(res.eigs)[::-1], _exact(a)[::-1][:3], rtol=1e-10)
+    assert res.Q_conv.shape == (16384, 3)
+
+
+def test_unported_legs_raise():
+    a = _op()
+    r = np.ones(a.shape[0])
+    cfg = LanczosConfig(n_wanted=3, s=4, tol=1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+        solve_auto(a, r, 32, cfg, engine="host", prefer="dia")
+    # one restart cannot converge: the ladder's next leg (the IRL) raises
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
+        solve_auto(a, r, 32, LanczosConfig(n_wanted=3, s=4, tol=1e-12, max_restarts=1),
+                   engine="fused", prefer="dia")
+
+
+def test_pell_rung_raises():
+    rng = np.random.default_rng(4)
+    a = sp.random(3000, 3000, density=0.002, random_state=rng, format="csr")
+    a = (a + a.T + sp.eye(3000)).tocsr()
+    with pytest.raises(NotImplementedError, match="A.9"):
+        make_operator(a)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        make_operator(a, prefer="pell")
+    A, route = make_operator(a, prefer="ell")
+    assert route.format == "ell"
+    x = np.random.default_rng(5).standard_normal(3000)
+    np.testing.assert_allclose(A.matvec(torch.as_tensor(x)).numpy(), a @ x, rtol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["shuffled_band", "expander"])
+def test_rcm_retry_and_ell_fallback_match_jax(kind):
+    # max_windows=2 makes the PELL window plan reject at a small n, as
+    # max_windows=16 does for scattered matrices of ~0.6M+ rows
+    n = 100_000
+    rng = np.random.default_rng(6)
+    if kind == "shuffled_band":
+        p = rng.permutation(n)
+        a = _op(n)[p][:, p].tocsr()
+    else:
+        rows = np.repeat(np.arange(n), 3)
+        b = sp.csr_matrix((rng.standard_normal(rows.size),
+                           (rows, rng.integers(0, n, rows.size))), (n, n))
+        a = (b + b.T + sp.eye(n)).tocsr()
+    Aj, rj = jmake_operator(a, max_windows=2)
+    At, rt = make_operator(a, max_windows=2)
+    assert rt.format == rj.format == ("dia" if kind == "shuffled_band" else "ell")
+    np.testing.assert_array_equal(rt.perm, rj.perm)
+    assert (rt.bandwidth_before, rt.bandwidth_after) == (rj.bandwidth_before,
+                                                         rj.bandwidth_after)
+    assert [m.split(";")[0] for m in rt.notes[:2]] == [m.split(";")[0] for m in rj.notes[:2]]
+    x = rng.standard_normal(n)
+    y = rt.restore(At.matvec(torch.as_tensor(rt.apply(x))).numpy())
+    np.testing.assert_allclose(y, a @ x, rtol=1e-12, atol=1e-12)
+    if kind == "expander":
+        with pytest.raises(ValueError, match="fallbacks are disabled"):
+            make_operator(a, max_windows=2, allow_ell_fallback=False)
+
+
+def test_polish_needs_f64_source():
+    from ca_lanczos_tpu_torch.ops.spmv import EllMatrix
+
+    A = EllMatrix.from_scipy(_op(512).astype(np.float32))
+    with pytest.raises(ValueError, match="f64 operator source"):
+        solve_auto(A, np.ones(512), 32, LanczosConfig(n_wanted=3), polish=2)
+
+
+def test_port_never_imports_jax():
+    code = ("import sys; import ca_lanczos_tpu_torch.harness.auto, "
+            "ca_lanczos_tpu_torch.utils.interop, ca_lanczos_tpu_torch.ops.formats; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ca_lanczos_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -1,0 +1,101 @@
+"""PyTorch port: the CUDA kernels K1-K3 against their plain versions on
+the card, including the fallbacks (K1 -> K2 steps, K3 -> chained single
+steps).  Needs a CUDA device and nvcc; skips elsewhere.  This file
+imports no JAX, so on a machine without it run
+
+    python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: f32 1e-5 and f64 1e-12 relative to max|plain| per step (the
+sums run in another order)."""
+
+import numpy as np
+import pytest
+import torch
+
+from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_spmv
+from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix, spmv
+
+pytestmark = pytest.mark.requires_cuda
+BOUND = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rel(got, ref):
+    got, ref = got.reshape(-1, got.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    return float(((got - ref).abs().amax(1) / ref.abs().amax(1)).max())
+
+
+def _operands(n, offsets, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((len(offsets), n)) * 0.3
+    x = rng.standard_normal(n)
+    return (torch.as_tensor(data, dtype=dtype, device=device),
+            torch.as_tensor(x, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offsets", [(-1, 0, 1), tuple(range(-4, 5)), (-3, 0, 2)])
+def test_k1_k2_k3_match_plain(cuda, dtype, offsets):
+    n, s = 100_003 * 8, 6  # ragged against every tile
+    D, X = _operands(n, offsets, dtype, cuda)
+    c = np.stack([np.linspace(-0.3, 0.3, s), np.r_[0.0, np.full(s - 1, 0.01)]], 1)
+    before = dict(cuda_spmv.LAUNCHES)
+    V, last = cuda_spmv.dia_powers_fused(D, X, c, offsets, s)
+    Vr, lr = cuda_spmv.dia_powers_fused_ref(D, X, c, offsets, s)
+    assert _rel(V, Vr) <= BOUND[dtype] and _rel(last, lr) <= BOUND[dtype]
+    y = cuda_spmv.dia_power_step(D, X, X.flip(0).contiguous(), c[1], offsets)
+    yr = cuda_spmv.dia_power_step_ref(D, X, X.flip(0), c[1], offsets)
+    assert _rel(y, yr) <= BOUND[dtype]
+    assert cuda_spmv.LAUNCHES["dia_powers_fused"] == before["dia_powers_fused"] + 1
+    assert cuda_spmv.LAUNCHES["dia_power_step"] == before["dia_power_step"] + 1
+    D_il = cuda_ilv.IlvDiaMatrix.from_dia(DiaMatrix(data=D, offsets=offsets)).data_il
+    X_il = cuda_ilv.ilv_encode(X).contiguous()
+    V3, l3 = cuda_ilv.dia_powers_ilv(D_il, X_il, c, offsets, s)
+    V3r, l3r = cuda_ilv.dia_powers_ilv_ref(D_il, X_il, c, offsets, s)
+    assert _rel(V3, V3r) <= BOUND[dtype] and _rel(l3, l3r) <= BOUND[dtype]
+    # monomial (no coefficients)
+    V0, _ = cuda_spmv.dia_powers_fused(D, X, None, offsets, 3)
+    assert _rel(V0, cuda_spmv.dia_powers_fused_ref(D, X, None, offsets, 3)[0]) <= BOUND[dtype]
+    torch.cuda.synchronize()
+
+
+def test_fallbacks_match_plain(cuda):
+    # a band too wide for the s-step shared-memory windows
+    n, s, offsets = 1 << 16, 4, (-900, -1, 0, 1, 900)
+    D, X = _operands(n, offsets, torch.float64, cuda, seed=1)
+    assert cuda_spmv.fused_tile(len(offsets), 900, s, torch.float64) == 0
+    A = DiaMatrix(data=D, offsets=offsets)
+    c = np.array([[0.1, 0.0], [0.2, 0.01], [-0.1, 0.02], [0.0, 0.01]])
+    got = cuda_spmv.matrix_powers_dia_fused(A, X, s, c[:, 0], c[:, 1])
+    Vr, _ = cuda_spmv.dia_powers_fused_ref(D, X, c, offsets, s)
+    assert _rel(got[:, 1:].T.contiguous(), Vr) <= 1e-12
+    mc = cuda_ilv.max_carry(offsets)
+    assert cuda_ilv.pick_tq(len(offsets), mc, s, torch.float64) == 0
+    D_il = cuda_ilv.IlvDiaMatrix.from_dia(A).data_il
+    X_il = cuda_ilv.ilv_encode(X).contiguous()
+    V3, l3 = cuda_ilv.dia_powers_ilv(D_il, X_il, c, offsets, s)
+    V3r, l3r = cuda_ilv.dia_powers_ilv_ref(D_il, X_il, c, offsets, s)
+    assert _rel(V3, V3r) <= 1e-12 and _rel(l3, l3r) <= 1e-12
+
+
+def test_wrappers_refuse_mixed_devices(cuda):
+    D, X = _operands(1024, (-1, 0, 1), torch.float32, cuda)
+    with pytest.raises(ValueError):
+        cuda_spmv.dia_power_step(D, X.cpu(), None, None, (-1, 0, 1))
+    with pytest.raises(ValueError):
+        cuda_spmv.dia_powers_fused(D, X[::2], None, (-1, 0, 1), 2)
+
+
+def test_spmv_of_a_dia_vector_is_one_k2_launch(cuda):
+    D, X = _operands(4099, (-2, 0, 3), torch.float32, cuda, seed=2)
+    A = DiaMatrix(data=D, offsets=(-2, 0, 3))
+    before = cuda_spmv.LAUNCHES["dia_power_step"]
+    y = spmv(A, X)
+    assert cuda_spmv.LAUNCHES["dia_power_step"] == before + 1
+    assert _rel(y, A.matvec(X)) <= BOUND[torch.float32]
