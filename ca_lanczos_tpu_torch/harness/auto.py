@@ -6,6 +6,9 @@ order the drivers, walks the escalation ladder until a driver converges,
 and optionally polishes the converged block in f64 (the two-stage
 pipeline: ``polish=``, ``over_lock=``).
 
+Raw input is routed onto ``device="cuda"`` unless the caller asks for
+another device.
+
 Ported legs: the explicit-restart driver with ``engine="fused"``
 (``solvers.fused_restarted``).  The host ``restarted_ca_lanczos`` and the
 ``impl_restarted_ca_lanczos`` legs raise ``NotImplementedError`` naming
@@ -132,7 +135,7 @@ def solve_auto(
     polish: int = 0,
     over_lock: int = 0,
     polish_depth: int = 4,
-    device="cpu",
+    device="cuda",
     **route_kwargs,
 ) -> AutoResult:
     """Solve for ``cfg.n_wanted`` extreme eigenpairs, escalating between
@@ -140,8 +143,12 @@ def solve_auto(
 
     ``A`` may be a port operator (it keeps its device), or any square
     scipy.sparse / dense matrix, routed by ``ops.formats.make_operator``
-    onto ``device`` (``route_kwargs`` forwarded); when the route reorders,
-    ``r`` is encoded and ``Q_conv`` decoded here.
+    onto ``device`` (``route_kwargs`` forwarded: ``prefer``, the PELL
+    encoder's ``tile`` / ``encoding`` / ``max_windows`` / ``sw``, ...);
+    when the route reorders, ``r`` is encoded and ``Q_conv`` decoded here.
+    A PELL operator reaches K4/K5 in every stage: normest, the probe and
+    the Newton bootstrap through the ``spmv`` seam, the solve through its
+    powers.
 
     ``which="smallest"`` solves -A and negates the eigenvalues back.
 

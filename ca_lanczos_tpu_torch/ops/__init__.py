@@ -1,4 +1,5 @@
 """Operators, matrix-powers kernels and QR factorizations."""
 
-# Registers the DIA kernel behind ops.spmv.spmv for CUDA vectors.
-from ca_lanczos_tpu_torch.ops import cuda_spmv  # noqa: F401
+# Register the DIA (K2) and PELL (K4/K5) kernels behind ops.spmv.spmv for
+# CUDA vectors.
+from ca_lanczos_tpu_torch.ops import cuda_pell, cuda_spmv  # noqa: F401

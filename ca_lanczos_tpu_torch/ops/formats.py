@@ -9,18 +9,22 @@ device":
                        CUDA device, f32 planes, pad waste <= 1.25x, s=8
                        halo bound — exactly where the TPU package upgrades
                        on a device backend) else DiaMatrix (K1/K2)
-  3. windowed nnz   -> the PELL rung, which raises NotImplementedError
-                       until the general-sparsity kernels K4/K5 are ported
-                       (ROADMAP A.9).  Whether PELL takes the matrix is
-                       decided exactly as the TPU encoder's window plan
-                       decides it (``_pell_window_overflow``).
+  3. windowed nnz   -> PellMatrix (general-sparsity kernels K4/K5); the
+                       encoder (``PellMatrix.from_scipy``, the JAX
+                       package's) decides, and its window-overflow
+                       ValueError sends the matrix on to 4
   4. scattered      -> RCM reorder, then re-route the permuted matrix
                        through 2-3 (the route carries the permutation)
   5. everything else-> EllMatrix (plain gather; correct but slow)
 
 The returned ``OperatorRoute`` records the decision and carries the
 permutation (identity when none), so eigenvectors map back with
-``route.restore(V)``.
+``route.restore(V)``.  ``save_operator`` / ``load_operator_npz`` store an
+encoded operator and its route in one ``.npz`` with the JAX package's
+keys, so either package reads the other's PELL/DIA/ELL/dense files.
+
+Every entry point puts the operator on ``device="cuda"`` unless told
+otherwise.
 """
 
 from __future__ import annotations
@@ -31,76 +35,10 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ca_lanczos_tpu_torch.ops.pell import PellMatrix
 from ca_lanczos_tpu_torch.ops.spmv import DenseMatrix, DiaMatrix, EllMatrix
 
-Routable = Union[DenseMatrix, DiaMatrix, EllMatrix]  # and IlvDiaMatrix (duck-typed)
-
-_PELL_TODO = (
-    "general sparsity routes to the PELL kernels K4/K5, not yet ported to "
-    "CUDA (ROADMAP A.9); pass prefer='ell' for the plain ELL operator"
-)
-_LANES = 128  # PELL chunk width (ops/pell.py LANES)
-
-
-def _pell_window_overflow(csr, tile: int = 1024, max_windows: int = 16,
-                          sw: Optional[int] = None) -> Optional[str]:
-    """Why the TPU package's PELL encoder would reject ``csr`` (its window
-    plan, ``PellMatrix.from_scipy`` pass 1 and the window lists), or None
-    when it would take it.  Host numpy, copied from the encoder so both
-    packages route the same inputs the same way."""
-    indptr, indices = csr.indptr, csr.indices
-    n = csr.shape[0]
-    ntiles = -(-n // tile)
-    g_tot = ntiles * tile // _LANES
-    SW_MAX, SW_MULTI = 65536, 16384
-    need = 0
-    tile_chunks = []
-    for t in range(ntiles):
-        lo_r, hi_r = t * tile, min((t + 1) * tile, n)
-        seg = indices[indptr[lo_r]:indptr[hi_r]]
-        cmin = int(seg.min()) if seg.size else lo_r
-        cmax = int(seg.max()) if seg.size else lo_r
-        need = max(need, cmax + 1 - (cmin // 1024) * 1024)
-        tile_chunks.append(np.unique(seg // _LANES).astype(np.int64) if seg.size
-                           else np.asarray([lo_r // _LANES], np.int64))
-    need = ((need + 1023) // 1024) * 1024
-
-    def windows(chunks, srq, g_x=None):
-        i, wins = 0, []
-        while i < len(chunks):
-            start = (int(chunks[i]) // 8) * 8  # 1024-element alignment
-            if g_x is not None:
-                start = min(start, g_x - srq)
-            wins.append(start)
-            i = int(np.searchsorted(chunks, start + srq, side="left"))
-        return len(wins)
-
-    if sw is None:
-        if need <= SW_MAX:
-            sw = need
-        else:
-            # the encoder's multi-window width: least fetch within max_windows
-            best = None
-            for cand in (1024, 2048, 4096, 8192, SW_MULTI, 32768):
-                tot = mx = 0
-                for ch in tile_chunks:
-                    c = windows(ch, cand // _LANES)
-                    tot, mx = tot + c, max(mx, c)
-                    if mx > max_windows:
-                        break
-                if mx <= max_windows and (best is None or tot * (cand + 2048) < best[0]):
-                    best = (tot * (cand + 2048), cand)
-            sw = best[1] if best else SW_MULTI
-    sw = max(((sw + 1023) // 1024) * 1024, 1024)
-    sw = min(sw, max(((ntiles * tile + 1023) // 1024) * 1024, 1024))
-    sr = sw // _LANES
-    g_x = max(g_tot, sr)
-    for t, chunks in enumerate(tile_chunks):
-        nw = windows(chunks, sr, g_x)
-        if nw > max_windows:
-            return (f"PELL window overflow: row tile {t} needs {nw} windows of {sw}"
-                    f" columns (> max_windows={max_windows})")
-    return None
+Routable = Union[DenseMatrix, DiaMatrix, EllMatrix, PellMatrix]  # and IlvDiaMatrix
 
 
 def dia_from_scipy(
@@ -108,7 +46,7 @@ def dia_from_scipy(
     max_diags: int = 64,
     waste_cap: float = 8.0,
     dtype=None,
-    device="cpu",
+    device="cuda",
 ) -> Optional[DiaMatrix]:
     """DIA storage of a scipy matrix when it is diagonal-sparse, else None:
     at most ``max_diags`` distinct diagonals and dense-plane padding
@@ -154,7 +92,7 @@ class OperatorRoute:
     out on the same device.
     """
 
-    format: str  # "dense" | "dia" | "ilv" | "ell"
+    format: str  # "dense" | "dia" | "ilv" | "pell" | "ell"
     perm: Optional[np.ndarray]
     notes: List[str]
     nnz: int
@@ -271,7 +209,90 @@ def negate_operator(A):
         return EllMatrix(vals=-A.vals, cols=A.cols)
     if isinstance(A, DenseMatrix):
         return DenseMatrix(a=-A.a)
+    if isinstance(A, PellMatrix):
+        return dataclasses.replace(A, vals=-A.vals)
     raise TypeError(f"cannot negate {type(A).__name__}")
+
+
+def save_operator(path: str, A: Routable, route: Optional[OperatorRoute] = None) -> None:
+    """Store an encoded operator (and its route) in one ``.npz`` with the
+    JAX package's keys: encode once on a host, solve many times.  A
+    DiaMatrix, EllMatrix, DenseMatrix or PellMatrix round-trips bit for
+    bit; an IlvDiaMatrix is stored as its normal-layout planes (without
+    the TPU tile ``tq`` the JAX package also writes)."""
+    from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
+
+    def h(t):
+        return t.detach().cpu().numpy()
+
+    if isinstance(A, DiaMatrix):
+        arrs = dict(kind="dia", data=h(A.data), offsets=np.asarray(A.offsets, np.int64))
+    elif isinstance(A, IlvDiaMatrix):
+        if A.dia_data is None:
+            raise ValueError("IlvDiaMatrix without dia_data cannot be serialized "
+                             "(construct with keep_dia=True)")
+        arrs = dict(kind="ilv", data=h(A.dia_data), offsets=np.asarray(A.offsets, np.int64))
+    elif isinstance(A, EllMatrix):
+        arrs = dict(kind="ell", vals=h(A.vals), cols=h(A.cols))
+    elif isinstance(A, DenseMatrix):
+        arrs = dict(kind="dense", a=h(A.a))
+    elif isinstance(A, PellMatrix):
+        arrs = dict(
+            kind="pell", vals=h(A.vals), lidx=h(A.lidx), cbase=h(A.cbase),
+            span_row=h(A.span_row),
+            statics=np.asarray([A.n, A.tile, A.k_slots, A.sw, A.nnz_count, A.n_win],
+                               np.int64),
+            enc=np.asarray(A.enc),
+        )
+    else:
+        raise TypeError(f"cannot serialize {type(A).__name__}")
+    if route is not None:
+        arrs["route_format"] = np.asarray(route.format)
+        arrs["route_nnz"] = np.asarray(route.nnz, np.int64)
+        arrs["route_notes"] = np.asarray("\n".join(route.notes))
+        if route.perm is not None:
+            arrs["route_perm"] = np.asarray(route.perm, np.int64)
+        if route.n_orig is not None:
+            arrs["route_n_orig"] = np.asarray(route.n_orig, np.int64)
+    np.savez_compressed(path, **arrs)
+
+
+def load_operator_npz(path: str, device="cuda") -> Tuple[Routable, Optional[OperatorRoute]]:
+    """Inverse of :func:`save_operator` (also reads the JAX package's
+    files), with the operator on ``device``."""
+    from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    with np.load(path, allow_pickle=False) as z:
+        kind = str(z["kind"])
+        if kind in ("dia", "ilv"):
+            A = DiaMatrix(data=t(z["data"]), offsets=tuple(int(o) for o in z["offsets"]))
+            if kind == "ilv":
+                A = IlvDiaMatrix.from_dia(A, keep_dia=True)
+        elif kind == "ell":
+            A = EllMatrix(vals=t(z["vals"]), cols=t(z["cols"], torch.int64))
+        elif kind == "dense":
+            A = DenseMatrix(a=t(z["a"]))
+        elif kind == "pell":
+            n, tile, k_slots, sw, nnz_count, n_win = (int(v) for v in z["statics"])
+            A = PellMatrix(vals=t(z["vals"]), lidx=t(z["lidx"]), cbase=t(z["cbase"]),
+                           span_row=t(z["span_row"]), n=n, tile=tile, k_slots=k_slots,
+                           sw=sw, nnz_count=nnz_count, n_win=n_win, enc=str(z["enc"]))
+        else:
+            raise ValueError(f"unknown operator kind {kind!r} in {path}")
+        route = None
+        if "route_format" in z:
+            notes = str(z["route_notes"])
+            route = OperatorRoute(
+                format=str(z["route_format"]),
+                perm=np.asarray(z["route_perm"]) if "route_perm" in z else None,
+                notes=notes.split("\n") if notes else [],
+                nnz=int(z["route_nnz"]),
+                n_orig=int(z["route_n_orig"]) if "route_n_orig" in z else None,
+            )
+    return A, route
 
 
 def make_operator(
@@ -282,22 +303,23 @@ def make_operator(
     max_diags: int = 64,
     dia_waste_cap: float = 8.0,
     tile: int = 1024,
+    encoding: str = "auto",
     max_windows: int = 16,
     sw: Optional[int] = None,
     allow_reorder: bool = True,
     allow_ell_fallback: bool = True,
     ilv="auto",
-    device="cpu",
+    device="cuda",
 ) -> Tuple[Routable, OperatorRoute]:
     """Route any square scipy.sparse / dense matrix to an operator on
     ``device``.
 
     prefer: "auto" routes per the module docstring; "dense" / "dia" /
-    "ilv" / "ell" force that format ("pell" raises NotImplementedError).
-    tile / max_windows / sw: the PELL encoder's plan, which decides
-    whether PELL takes the matrix.  ilv: "auto" upgrades f32 DIA routes on
-    a CUDA device to the interleaved carrier; False keeps DiaMatrix; True
-    forces it.
+    "ilv" / "pell" / "ell" force that format.  tile / encoding /
+    max_windows / sw: the PELL encoder's arguments (``encoding`` "unit",
+    "grouped", "grouped4" or "auto").  ilv: "auto" upgrades f32 DIA routes
+    on a CUDA device to the interleaved carrier; False keeps DiaMatrix;
+    True forces it.
 
     Returns (operator, route).  When route.perm is not None the caller
     runs the solver on ``route.apply(r0)`` and maps Ritz vectors back with
@@ -332,7 +354,7 @@ def make_operator(
             )
         return A, OperatorRoute("dia", None, ["forced dia"], nnz)
     if prefer == "ilv":
-        Ah = dia_from_scipy(csr, max_diags=max_diags, waste_cap=dia_waste_cap)
+        Ah = dia_from_scipy(csr, max_diags=max_diags, waste_cap=dia_waste_cap, device="cpu")
         if Ah is None:
             raise ValueError(
                 f"matrix does not qualify for DIA/ilv (max_diags={max_diags},"
@@ -341,7 +363,9 @@ def make_operator(
         Ail, perm_il, _ = _maybe_ilv(Ah, csr, notes, True, device)
         return Ail, OperatorRoute("ilv", perm_il, ["forced ilv"] + notes, nnz, n_orig=n)
     if prefer == "pell":
-        raise NotImplementedError(_PELL_TODO)
+        A = PellMatrix.from_scipy(csr, tile=tile, encoding=encoding, max_windows=max_windows,
+                                  sw=sw, device=device)
+        return A, OperatorRoute("pell", None, ["forced pell"], nnz)
     if prefer == "ell":
         return (EllMatrix.from_scipy(csr, device=device),
                 OperatorRoute("ell", None, ["forced ell"], nnz))
@@ -349,21 +373,23 @@ def make_operator(
         raise ValueError(f"unknown prefer={prefer!r}")
 
     def route_csr(m):
-        """DIA (host planes: the ilv upgrade repacks them), else the PELL
-        rung: NotImplementedError when PELL would take ``m``, None when its
-        window plan rejects it."""
-        A = dia_from_scipy(m, max_diags=max_diags, waste_cap=dia_waste_cap)
+        """DIA (host planes: the ilv upgrade repacks them), else PELL on
+        ``device``, else None (the encoder's window overflow)."""
+        A = dia_from_scipy(m, max_diags=max_diags, waste_cap=dia_waste_cap, device="cpu")
         if A is not None:
             return A
-        why = _pell_window_overflow(m, tile=tile, max_windows=max_windows, sw=sw)
-        if why is None:
-            raise NotImplementedError(_PELL_TODO)
-        notes.append(f"pell rejected: {why}")
-        return None
+        try:
+            return PellMatrix.from_scipy(m, tile=tile, encoding=encoding,
+                                         max_windows=max_windows, sw=sw, device=device)
+        except ValueError as e:  # window overflow
+            notes.append(f"pell rejected: {e}")
+            return None
 
     def finish(A, perm, m, bw_b=None, bw_a=None):
         """Upgrade a DIA win to the ilv carrier (composing the interleave
         permutation with any RCM perm); move it to the device otherwise."""
+        if isinstance(A, PellMatrix):
+            return A, OperatorRoute("pell", perm, notes, nnz, bw_b, bw_a)
         up = _maybe_ilv(A, m, notes, ilv, device)
         if up is not None:
             Ail, perm_il, n_pad = up

@@ -8,7 +8,8 @@ one generic three-term recurrence driven by the change-of-basis matrix B
 
 The recurrence is a Python loop over ``spmv``; on CUDA the dispatcher
 routes real DIA operators to the hand-written kernels (K1, or K2 when
-K1's halo does not fit) and the interleaved carrier to K3.  Divergence
+K1's halo does not fit), the interleaved carrier to K3 and a PELL
+operator to K4/K5 (s launches, each fusing its step's shifts).  Divergence
 from the TPU package: its ``_pallas_eligible`` also required float32, a
 non-CPU backend and a 1024-aligned n — Mosaic limits that do not exist
 here — so on CUDA a float64 DIA operator runs K1 where the TPU ran the
@@ -122,6 +123,7 @@ def matrix_powers(A: Operator, q: torch.Tensor, s: int, Bk: Optional[np.ndarray]
     shifts never reach a kernel."""
     from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
     from ca_lanczos_tpu_torch.ops.cuda_spmv import matrix_powers_dia_fused
+    from ca_lanczos_tpu_torch.ops.pell import PellMatrix, matrix_powers_pell
 
     basis = Basis(basis)
     if basis not in (Basis.MONOMIAL, Basis.NEWTON):
@@ -134,6 +136,8 @@ def matrix_powers(A: Operator, q: torch.Tensor, s: int, Bk: Optional[np.ndarray]
         return matrix_powers_dia_fused(A, q, s, diag, sub)
     if real and isinstance(A, IlvDiaMatrix) and not q.is_complex():
         return A.powers(q, s, diag, sub)
+    if real and isinstance(A, PellMatrix) and not q.is_complex():
+        return matrix_powers_pell(A, q, s, diag, sub)
     if basis == Basis.MONOMIAL:
         return matrix_powers_monomial(A, q, s)
     return matrix_powers_from_B(A, q, Bk)

@@ -7,8 +7,11 @@ slices, gather-sum, matmul) and runs on any device.
 The ``spmv`` seam sends a 1-D product on a CUDA device to the kernel
 registered for the operator's type in ``CUDA_MATVEC``: ``ops.cuda_spmv``
 (imported with the ``ops`` package) registers the DIA step kernel K2 for
-``DiaMatrix``, one launch where eager PyTorch spends 2*ndiags+1.  This
-module imports no kernel module.
+``DiaMatrix``, one launch where eager PyTorch spends 2*ndiags+1, and
+``ops.cuda_pell`` the PELL step kernels K4/K5 for ``PellMatrix``
+(``ops.pell``).  This module imports no kernel module.
+
+Constructors put their tensors on ``device="cuda"`` unless told otherwise.
 
 Plane convention (as in the JAX package): ``data[d, i] = A[i, i + offsets[d]]``.
 """
@@ -20,6 +23,8 @@ from typing import Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
+
+from ca_lanczos_tpu_torch.ops.pell import PellMatrix
 
 
 def _dia_matvec(offsets: Tuple[int, ...], data: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -81,7 +86,7 @@ class DiaMatrix:
         return out
 
     @staticmethod
-    def from_dense(a, tol: float = 0.0, device="cpu") -> "DiaMatrix":
+    def from_dense(a, tol: float = 0.0, device="cuda") -> "DiaMatrix":
         a = np.asarray(a)
         n = a.shape[0]
         offsets = []
@@ -145,7 +150,7 @@ class EllMatrix:
         return out
 
     @staticmethod
-    def from_scipy(a, device="cpu") -> "EllMatrix":
+    def from_scipy(a, device="cuda") -> "EllMatrix":
         """Convert a scipy.sparse matrix to ELL (vectorized, O(nnz))."""
         import scipy.sparse as sp
 
@@ -204,7 +209,7 @@ class DenseMatrix:
 
 # IlvDiaMatrix (ops.cuda_ilv) also satisfies this protocol (duck-typed on
 # matvec/shape/dtype/device/nnz).
-Operator = Union[DiaMatrix, EllMatrix, DenseMatrix]
+Operator = Union[DiaMatrix, EllMatrix, DenseMatrix, PellMatrix]
 
 
 # Kernel for a 1-D product on a CUDA device, by operator type (module

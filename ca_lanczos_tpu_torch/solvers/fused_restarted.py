@@ -14,9 +14,10 @@ on the device:
   merge in through masks, so no shape depends on the device-side count.
 
 Matrix powers: an ``IlvDiaMatrix`` runs K3 (``ops.cuda_ilv``), a real DIA
-operator K1 or K2 (``ops.cuda_spmv``), anything else the plain recurrence
-over ``spmv``.  On CPU tensors the kernel wrappers take their plain
-versions.
+operator K1 or K2 (``ops.cuda_spmv``), a ``PellMatrix`` s launches of K4
+or K5 with each step's shifts fused (``ops.pell.matrix_powers_pell``),
+anything else the plain recurrence over ``spmv``.  On CPU tensors the
+kernel wrappers take their plain versions.
 
 Semantics match the TPU driver: orth LOCAL (always-2-pass CGS), passing
 candidates locked in descending order with true-residual verification.
@@ -80,6 +81,7 @@ def _powers_fn(A, s: int, coefs: np.ndarray) -> Callable[[torch.Tensor], torch.T
     from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix, dia_powers_ilv
     from ca_lanczos_tpu_torch.ops.cuda_spmv import matrix_powers_dia_fused
     from ca_lanczos_tpu_torch.ops.matrix_powers import _kernel_eligible, _newton_scan
+    from ca_lanczos_tpu_torch.ops.pell import PellMatrix, matrix_powers_pell
 
     diag, sub = coefs[:, 0], coefs[:, 1]
     if isinstance(A, IlvDiaMatrix):
@@ -87,6 +89,8 @@ def _powers_fn(A, s: int, coefs: np.ndarray) -> Callable[[torch.Tensor], torch.T
             V, _ = dia_powers_ilv(A.data_il, qv, coefs, A.offsets, s)
             return torch.cat([qv[:, None], V.T], dim=1)
         return powers
+    if isinstance(A, PellMatrix):
+        return lambda qv: matrix_powers_pell(A, qv, s, diag, sub)
 
     def powers(qv):
         if _kernel_eligible(A, qv):

@@ -5,6 +5,8 @@
 same values on ``device``, so both packages compute on identical
 operators.  Recognised by their fields:
 
+* ``PellMatrix`` — ``span_row`` and the other planes and statics, taken
+  as they are (the two packages' planes are the same bits);
 * ``IlvDiaMatrix`` — ``dia_data``, ``offsets``, ``n_rows``; rebuilt in the
   port's interleaved layout (needs the normal-layout companion, i.e. a
   carrier made with ``keep_dia=True``);
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
+from ca_lanczos_tpu_torch.ops.pell import PellMatrix
 from ca_lanczos_tpu_torch.ops.spmv import DenseMatrix, DiaMatrix, EllMatrix
 
 
@@ -26,8 +29,15 @@ def _t(x, device, dtype=None) -> torch.Tensor:
     return torch.tensor(np.array(x), dtype=dtype, device=device)
 
 
-def operator_from_numpy(A, device="cpu"):
+def operator_from_numpy(A, device="cuda"):
     """The port's counterpart of the JAX operator ``A`` (see module doc)."""
+    if hasattr(A, "span_row"):
+        return PellMatrix(
+            vals=_t(A.vals, device), lidx=_t(A.lidx, device), cbase=_t(A.cbase, device),
+            span_row=_t(A.span_row, device), n=int(A.n), tile=int(A.tile),
+            k_slots=int(A.k_slots), sw=int(A.sw), nnz_count=int(A.nnz_count),
+            n_win=int(A.n_win), enc=str(A.enc),
+        )
     if hasattr(A, "dia_data") and hasattr(A, "n_rows"):
         if A.dia_data is None:
             raise ValueError("IlvDiaMatrix without dia_data: build it with keep_dia=True")

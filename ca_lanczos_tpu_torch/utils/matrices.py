@@ -16,13 +16,13 @@ from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
 
 
 def diag_spectrum(n: int, lo: float = 1.0, hi: float = 100.0, dtype=torch.float64,
-                  device="cpu") -> DiaMatrix:
+                  device="cuda") -> DiaMatrix:
     """A = diag(linspace(lo, hi, n)); eigenvalues known exactly."""
     d = torch.as_tensor(np.linspace(lo, hi, n), dtype=dtype, device=device)
     return DiaMatrix(data=d[None, :], offsets=(0,))
 
 
-def laplacian_1d(n: int, dtype=torch.float64, device="cpu") -> DiaMatrix:
+def laplacian_1d(n: int, dtype=torch.float64, device="cuda") -> DiaMatrix:
     """Standard 3-point 1-D Laplacian (tridiag [-1, 2, -1]), SPD."""
     data = np.zeros((3, n))
     data[0, 1:] = -1.0  # A[i, i-1]
@@ -32,7 +32,7 @@ def laplacian_1d(n: int, dtype=torch.float64, device="cpu") -> DiaMatrix:
                      offsets=(-1, 0, 1))
 
 
-def laplacian_2d(nx: int, ny: int, dtype=torch.float64, device="cpu") -> DiaMatrix:
+def laplacian_2d(nx: int, ny: int, dtype=torch.float64, device="cuda") -> DiaMatrix:
     """5-point 2-D Laplacian on an nx-by-ny grid (row-major), SPD; the +/-1
     diagonals are zeroed at grid-row boundaries."""
     n = nx * ny

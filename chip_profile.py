@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Profile the stages of the PyTorch/CUDA port's banded main path on one GPU.
+"""Profile the stages of the PyTorch/CUDA port's main paths on one GPU.
 
-Run from the root of a checkout:  ``python3 chip_profile.py``
+Run from the root of a checkout:  ``python3 chip_profile.py [A] [B] [C]``
+(no argument: all three)
 
-It takes chip_smoke.py's two configurations (A: the 11,010,048-row f32
-flagship tridiagonal with prefer="dia", solved through K1; B: 4,194,304 rows
-with prefer="auto", solved on the interleaved route through K3), runs each
-stage of ``solve_auto`` on its own and prints, per configuration:
+It takes chip_smoke.py's configurations (A: the 11,010,048-row f32 flagship
+tridiagonal with prefer="dia", solved through K1; B: 4,194,304 rows with
+prefer="auto", solved on the interleaved route through K3; C: the
+11,010,048-row PELL oracle matrix with prefer="pell", encoding="auto",
+solved through K5), runs each stage of ``solve_auto`` on its own and
+prints, per configuration:
 
 * route seconds (``make_operator``) and probe seconds (``recommend_solver``);
 * the fused solve's wall seconds unprofiled, twice (the first run pays the
@@ -16,9 +19,9 @@ stage of ``solve_auto`` on its own and prints, per configuration:
   ``1 - busy / unprofiled wall`` (the profiler slows the host, so its own
   wall is not used), the device ms per call of each hand-written kernel,
   and the top 15 operators and kernels by device time;
-* the polish: for A the host preparation of the f64 planes (offset scan,
-  scipy DIA conversion) and the device polish, profiled like the solve;
-  for B (a permuted route) the host polish's wall seconds.
+* the polish: for A and C the host preparation of the f64 planes (offset
+  scan, scipy DIA conversion) and the device polish, profiled like the
+  solve; for B (a permuted route) the host polish's wall seconds.
 
 Host-clock seconds end with the device synchronised.  Without a CUDA
 device it exits non-zero.
@@ -33,7 +36,8 @@ import chip_smoke
 
 DEVICE = "cuda"
 ROWS = 15  # rows of each profiler table
-KERNELS = ("dia_powers_fused_kernel", "dia_power_step_kernel", "ilv_powers_kernel")
+KERNELS = ("dia_powers_fused_kernel", "dia_power_step_kernel", "ilv_powers_kernel",
+           "pell_unit_kernel", "pell_grouped_kernel")
 
 
 def timed(torch, fn):
@@ -68,15 +72,16 @@ def profiled(torch, label: str, fn, wall: float):
     print(f"{label} profiled: wall {pwall:.3f}s device busy {busy:.3f}s idle share "
           f"{1.0 - busy / wall:.3f} (vs unprofiled wall {wall:.3f}s)")
     for avg in prof.key_averages():
-        if any(k in avg.key for k in KERNELS):
-            t = avg.self_device_time_total
-            print(f"{label} kernel {avg.key.split('(')[0]}: {avg.count} calls, "
-                  f"{t / avg.count / 1e3:.4f} ms/call, {t / 1e6:.4f}s")
+        for k in KERNELS:
+            if k in avg.key:
+                t = avg.self_device_time_total
+                print(f"{label} kernel {k} ({avg.key[:80]}): {avg.count} calls, "
+                      f"{t / avg.count / 1e3:.4f} ms/call, {t / 1e6:.4f}s")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=ROWS,
                                     max_name_column_width=60))
 
 
-def configuration(torch, label: str, n: int, prefer: str) -> None:
+def configuration(torch, label: str, a, prefer: str, **route_kw) -> None:
     import scipy.sparse as sp
 
     from ca_lanczos_tpu_torch.config import LanczosConfig
@@ -87,11 +92,13 @@ def configuration(torch, label: str, n: int, prefer: str) -> None:
     from ca_lanczos_tpu_torch.solvers.fused_restarted import fused_restarted_ca_lanczos
     from ca_lanczos_tpu_torch.solvers.polish import rayleigh_ritz_polish
 
-    a, _ = chip_smoke.flagship(n)
+    n = a.shape[0]
     a32 = a.astype(np.float32)
     cfg = LanczosConfig(n_wanted=13, s=8, tol=1e-4, max_restarts=200)  # 10 + over_lock 3
-    (A, route), t = timed(torch, lambda: make_operator(a32, prefer=prefer, device=DEVICE))
-    print(f"== {label}: n={n} prefer={prefer} route={route.format} make_operator {t:.3f}s")
+    (A, route), t = timed(torch, lambda: make_operator(a32, prefer=prefer, device=DEVICE,
+                                                       **route_kw))
+    print(f"== {label}: n={n} prefer={prefer} {route_kw} route={route.format} "
+          f"{getattr(A, 'enc', '')} make_operator {t:.3f}s")
     r = torch.as_tensor(route.apply(np.ones(n)), dtype=A.dtype, device=A.device)
     rec, t = timed(torch, lambda: recommend_solver(A, n_wanted=cfg.n_wanted, probe_steps=40))
     print(f"{label} probe {t:.3f}s -> {rec['driver']}")
@@ -111,9 +118,11 @@ def configuration(torch, label: str, n: int, prefer: str) -> None:
         coo = sp.coo_matrix(a)
         _, t_off = timed(torch, lambda: np.unique(coo.col.astype(np.int64) - coo.row))
         d, t_dia = timed(torch, lambda: sp.dia_matrix(sp.csr_matrix(a).astype(np.float64)))
-        A64 = DiaMatrix(data=torch.as_tensor(auto._dia_rows(d), device=DEVICE),
-                        offsets=tuple(int(o) for o in d.offsets))
-        print(f"{label} polish host prep: offsets {t_off:.3f}s dia planes {t_dia:.3f}s")
+        planes, t_rows = timed(torch, lambda: auto._dia_rows(d))
+        data, t_h2d = timed(torch, lambda: torch.as_tensor(planes, device=DEVICE))
+        A64 = DiaMatrix(data=data, offsets=tuple(int(o) for o in d.offsets))
+        print(f"{label} polish host prep: offsets {t_off:.3f}s dia planes {t_dia:.3f}s "
+              f"row layout {t_rows:.3f}s to the card {t_h2d:.3f}s ({len(d.offsets)} diagonals)")
         polish = lambda: rayleigh_ritz_polish(A64, Q, iters=10, depth=4)  # noqa: E731
         polish()  # first use
         _, wall = timed(torch, polish)
@@ -133,8 +142,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     chip_smoke.phase0(torch)
-    configuration(torch, "A", 11010048, "dia")
-    configuration(torch, "B", 4194304, "auto")
+    which = set(sys.argv[1:]) or {"A", "B", "C"}
+    if "A" in which:
+        configuration(torch, "A", chip_smoke.flagship(11010048)[0], "dia")
+    if "B" in which:
+        configuration(torch, "B", chip_smoke.flagship(4194304)[0], "auto")
+    if "C" in which:
+        configuration(torch, "C", chip_smoke.pell_operator(chip_smoke.PELL_N)[0], "pell",
+                      encoding="auto")
     return 0
 
 

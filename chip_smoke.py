@@ -1,40 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's banded main path once on one GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU.
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
-Phase 0  the card (nvidia-smi name and power limit), TF32 off, build of the
-         CUDA kernels from ``ca_lanczos_tpu_torch/csrc`` into build/kernels.
-Phase 1  each kernel against its plain PyTorch version on the card, at the
-         main path's shapes (bench.py's operator: 4,194,304 rows x 9
-         diagonals, s=8, Newton coefficients from the port's own bootstrap),
-         f32 and f64: max error relative to max|plain| per step (bounds 1e-5
-         f32, 1e-12 f64; the sums run in another order), median CUDA-event
-         times over 20 reps after warm-up, Gnnz/s = nnz*s/t.
+Phase 0  the card (nvidia-smi name and power limit), TF32 off; the CUDA
+         kernels of ``ca_lanczos_tpu_torch/csrc`` (one nvcc per source, all
+         started together) and the native PELL encoder (g++) built into
+         build/.
+Phase 1  each kernel against its plain PyTorch version on the card, f32 and
+         f64: max error relative to max|plain| per vector (bounds 1e-5 f32,
+         1e-12 f64; the sums run in another order), median CUDA-event times
+         over 20 reps after warm-up, the bound (bytes each input read once
+         and each output written once over 3.35 TB/s, or operations over the
+         peak rate, whichever is larger) and one torch.sparse CSR matvec of
+         the same matrix as the library yardstick.
+         K1-K3 at bench.py's operator (4,194,304 rows x 9 diagonals, s=8,
+         Newton coefficients from the port's own bootstrap); K1 and K3 do s
+         steps, for which no single library call exists, so their
+         library_ms is null and s x the CSR time is printed beside them.
+         K4 and K5 on the planes of exp/pell_10m_e2e.py's operator
+         (11,010,048 rows, encoded "unit", "auto" (it must pick grouped)
+         and "grouped4").
 Phase 2  main path A: ``solve_auto`` on the 11,010,048-row f32 flagship
          tridiagonal (exp/flagship_10m.py's matrix), prefer="dia" -> K1,
          polish=10, over_lock=3; checked against the committed oracle.
 Phase 3  main path B: the same at 4,194,304 rows with prefer="auto" -> the
          interleaved route -> K3.
+Phase C  main path C: ``solve_auto`` on the PELL oracle matrix (f32),
+         prefer="pell", encoding="auto" -> grouped planes -> K5; checked
+         against exp/pell_10m_oracle_11010048.npz.
+Phase D  main path D: the same CSR with encoding="unit" -> K4.
 
-Every launch counter is set to 0 just before phase 2 and read just after
-phase 3.  Any failed check raises (exit code != 0).  The line before the
-last is {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
-Without a CUDA device, or outside a checkout, it exits non-zero and prints
-no result.
+Every launch counter is set to 0 just before each main path and read just
+after it; a kernel's ``launches`` is the sum over the main paths.  Any
+failed check raises (exit code != 0).  The line before the last is
+{"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Without a
+CUDA device, or outside a checkout, it exits non-zero and prints no result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPS = 20
 BOUND = {"float32": 1e-5, "float64": 1e-12}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # outside the tensor cores
+PELL_N = 11010048
 
 
 def log(msg: str) -> None:
@@ -66,6 +85,19 @@ def rel_err(torch, got, ref) -> float:
     return float((num / den).max())
 
 
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    """Least time for the work: bytes over the HBM rate or operations over
+    the peak rate, the larger; returns (ms, "bytes" | "operations")."""
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def counters():
+    from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_pell, cuda_spmv
+
+    return (cuda_spmv.LAUNCHES, cuda_ilv.LAUNCHES, cuda_pell.LAUNCHES)
+
+
 def phase0(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -78,21 +110,58 @@ def phase0(torch):
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    from ca_lanczos_tpu_torch.ops import _cuda_build, cuda_ilv, cuda_spmv
+    from ca_lanczos_tpu_torch.ops import (
+        _cuda_build,
+        _pell_native,
+        cuda_ilv,
+        cuda_pell,
+        cuda_spmv,
+    )
 
-    for name, load in (("dia_powers", cuda_spmv._lib), ("ilv_powers", cuda_ilv._lib)):
+    builds = {"dia_powers": cuda_spmv._lib, "ilv_powers": cuda_ilv._lib,
+              "pell": cuda_pell._lib, "pell_encode (g++)": _pell_native.available}
+
+    def build(item):
         t0 = time.perf_counter()
-        load()
-        log(f"build {name}: {time.perf_counter() - t0:.1f}s "
-            f"-> {_cuda_build.library_path(name).name}")
+        out = item[1]()
+        return item[0], out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(builds)) as pool:
+        done = list(pool.map(build, builds.items()))
+    for name, out, secs in done:
+        if name == "pell_encode (g++)":
+            if not out:
+                raise AssertionError("the native PELL encoder did not build or load")
+            log(f"build {name}: {secs:.1f}s")
+            continue
+        log(f"build {name}: {secs:.1f}s -> {_cuda_build.library_path(name).name}")
         for line in _cuda_build.build_log(name).splitlines():
             if "Used" in line or "spill" in line or "Compiling" in line:
                 log(f"  {line.strip()}")
     return smi
 
 
-def phase1(torch):
-    """Kernels vs plain versions; returns the f32 rows for the JSON line."""
+def csr_library(torch, csr, dtype):
+    """The same matrix as a torch.sparse CSR tensor on the card (the
+    yardstick of library_ms; the port never calls it)."""
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr.astype(np.int64)),
+        torch.as_tensor(csr.indices.astype(np.int64)),
+        torch.as_tensor(csr.data), size=csr.shape, dtype=dtype, device="cuda")
+
+
+def check_row(torch, kname, dt, got, ref):
+    err = rel_err(torch, got, ref)
+    abs_err = float((got - ref).abs().max())
+    if not bool(torch.isfinite(got).all()) or not err <= BOUND[dt]:
+        raise AssertionError(f"{kname} [{dt}] disagrees with its plain version: {err:.3e}")
+    return err, abs_err
+
+
+def phase1_dia(torch):
+    """K1-K3 vs plain versions; returns the f32 rows for the JSON line."""
+    import scipy.sparse as sp
+
     from ca_lanczos_tpu_torch.config import Basis
     from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_spmv
     from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
@@ -119,59 +188,157 @@ def phase1(torch):
     log(f"newton coefs: shifts {np.round(coefs[:, 0], 4).tolist()} "
         f"subs {np.round(coefs[:, 1], 6).tolist()}")
     del A64
+    # the library yardstick: one CSR matvec of the same matrix, f32
+    rows = [np.arange(max(0, -o), min(n, n - o)) for o in offsets]
+    csr = sp.csr_matrix((np.concatenate([data[d, r] for d, r in enumerate(rows)]),
+                         (np.concatenate(rows),
+                          np.concatenate([r + o for r, o in zip(rows, offsets)]))), (n, n))
+    Acsr = csr_library(torch, csr, torch.float32)
+    xl = torch.as_tensor(x, device="cuda")
+    csr_ms = time_ms(torch, lambda: Acsr @ xl)
+    log(f"library: torch.sparse CSR f32 matvec (n={n}, nnz={csr.nnz}) {csr_ms:.4f} ms; "
+        f"s x CSR = {s * csr_ms:.4f} ms")
+    del Acsr, csr, xl
 
-    rows = []
+    out = []
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
+        item = torch.empty((), dtype=dt).element_size()
         D = torch.as_tensor(data, dtype=dt, device="cuda")
         X = torch.as_tensor(x, dtype=dt, device="cuda")
         P = torch.as_tensor(vprev, dtype=dt, device="cuda")
         D_il = cuda_ilv.IlvDiaMatrix.from_dia(DiaMatrix(data=D, offsets=offsets),
                                               keep_dia=False).data_il
         X_il = cuda_ilv.ilv_encode(X).contiguous()
+        # bytes: planes + x read, V (s, n) and last written; 2 flops per
+        # nonzero and 4 per row for the shifts, per step
+        powers_bytes = (nd + 1 + s + 1) * n * item
+        powers_flops = s * (2 * nnz + 4 * n)
         cases = [
             ("dia_powers_fused", "ca_lanczos_tpu_torch/csrc/dia_powers.cu",
-             "ca_lanczos_tpu/ops/pallas_spmv.py:403", s,
+             "ca_lanczos_tpu/ops/pallas_spmv.py:403", s, powers_bytes, powers_flops, None,
              lambda: cuda_spmv.dia_powers_fused(D, X, coefs, offsets, s),
              lambda: cuda_spmv.dia_powers_fused_ref(D, X, coefs, offsets, s)),
             ("dia_power_step", "ca_lanczos_tpu_torch/csrc/dia_powers.cu",
-             "ca_lanczos_tpu/ops/pallas_spmv.py:113", 1,
+             "ca_lanczos_tpu/ops/pallas_spmv.py:113", 1, (nd + 3) * n * item,
+             2 * nnz + 4 * n, csr_ms,
              lambda: cuda_spmv.dia_power_step(D, X, P, coefs[1], offsets),
              lambda: cuda_spmv.dia_power_step_ref(D, X, P, coefs[1], offsets)),
             ("dia_powers_ilv", "ca_lanczos_tpu_torch/csrc/ilv_powers.cu",
-             "ca_lanczos_tpu/ops/pallas_ilv.py:301", s,
+             "ca_lanczos_tpu/ops/pallas_ilv.py:301", s, powers_bytes, powers_flops, None,
              lambda: cuda_ilv.dia_powers_ilv(D_il, X_il, coefs, offsets, s),
              lambda: cuda_ilv.dia_powers_ilv_ref(D_il, X_il, coefs, offsets, s)),
         ]
-        for kname, src, replaces, steps, kern, plain in cases:
+        for kname, src, replaces, steps, nbytes, flops, lib_ms, kern, plain in cases:
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             if isinstance(got, tuple):
-                err = max(rel_err(torch, got[0], ref[0]), rel_err(torch, got[1], ref[1]))
-                abs_err = max(float((got[0] - ref[0]).abs().max()),
-                              float((got[1] - ref[1]).abs().max()))
-                finite = bool(torch.isfinite(got[0]).all())
+                e0, a0 = check_row(torch, kname, name, got[0], ref[0])
+                e1, a1 = check_row(torch, kname, name, got[1], ref[1])
+                err, abs_err = max(e0, e1), max(a0, a1)
             else:
-                err = rel_err(torch, got, ref)
-                abs_err = float((got - ref).abs().max())
-                finite = bool(torch.isfinite(got).all())
+                err, abs_err = check_row(torch, kname, name, got, ref)
             del got, ref
             ms = time_ms(torch, kern)
             plain_ms = time_ms(torch, plain)
-            gnnz = nnz * steps / (ms * 1e-3) / 1e9
+            bms, by = bound_ms(nbytes, flops, name)
             log(f"kernel {kname} [{name}] n={n} nd={nd} s={steps}: rel_err={err:.3e} "
                 f"(bound {BOUND[name]:.0e}) abs_err={abs_err:.3e} "
-                f"kernel {ms:.4f} ms ({gnnz:.1f} Gnnz/s) plain {plain_ms:.4f} ms "
-                f"({nnz * steps / (plain_ms * 1e-3) / 1e9:.1f} Gnnz/s) "
-                f"speedup {plain_ms / ms:.2f}x")
-            if not finite or not err <= BOUND[name]:
-                raise AssertionError(f"{kname} [{name}] disagrees with its plain version")
+                f"kernel {ms:.4f} ms ({nnz * steps / (ms * 1e-3) / 1e9:.1f} Gnnz/s) "
+                f"plain {plain_ms:.4f} ms bound {bms:.4f} ms ({by}; {bms / ms:.0%} of it) "
+                f"speedup over plain {plain_ms / ms:.2f}x")
             if dt == torch.float32:
-                rows.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
-                                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms))
+                out.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
+                                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                bound_by=by, library_ms=lib_ms))
         del D, X, P, D_il, X_il
     torch.cuda.empty_cache()
-    return rows
+    return out
+
+
+def pell_operator(n: int, bw: int = 8, k: int = 4, seed: int = 0):
+    """exp/pell_10m_e2e.py:43-56: random columns inside a width-8 band (4
+    per row, symmetrised) over a separated-top diagonal, f64 CSR."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    d = np.linspace(1.0, 90.0, n)
+    d[-10:] = np.linspace(95.0, 100.0, 10)
+    rows = np.repeat(np.arange(n), k)
+    keys = rng.random((n, 2 * bw + 1))
+    pick = np.argsort(keys, axis=1)[:, :k]  # k distinct offsets in [-bw, bw]
+    cols = np.arange(n)[:, None] + (pick - bw)
+    cols = np.clip(cols, 0, n - 1).ravel()
+    vals = (rng.standard_normal(n * k) * 1e-3).ravel()
+    off = sp.csr_matrix((vals, (rows, cols)), (n, n))
+    a = off + off.T + sp.diags(d)
+    a.sum_duplicates()
+    return a.tocsr(), d
+
+
+def phase1_pell(torch, a32):
+    """K4/K5 vs the plain version on the PELL oracle matrix's planes,
+    encoded "unit", "auto" (which must pick grouped, the encoding phase C
+    routes to) and "grouped4", f32 and f64; returns the f32 rows of K4 and
+    of K5 grouped."""
+    from ca_lanczos_tpu_torch.ops import cuda_pell, pell
+
+    n = a32.shape[0]
+    Acsr = csr_library(torch, a32, torch.float32)
+    rng = np.random.default_rng(7)
+    x = np.asarray(rng.standard_normal(n), np.float32)
+    vp = np.asarray(rng.standard_normal(n), np.float32)
+    xl = torch.as_tensor(x, device="cuda")
+    csr_ms = time_ms(torch, lambda: Acsr @ xl)
+    log(f"library: torch.sparse CSR f32 matvec (n={n}, nnz={a32.nnz}) {csr_ms:.4f} ms")
+    del Acsr, xl
+    d, sb = 0.7, -0.3
+    out = []
+    for request in ("unit", "auto", "grouped4"):
+        t0 = time.perf_counter()
+        A32 = pell.PellMatrix.from_scipy(a32, encoding=request, native=True, device="cuda")
+        torch.cuda.synchronize()
+        enc = A32.enc
+        log(f"encode {request} (native): {time.perf_counter() - t0:.2f}s K={A32.k_slots} "
+            f"sw={A32.sw} n_win={A32.n_win} enc={enc}")
+        if request == "auto" and enc != "grouped":
+            raise AssertionError(f"encoding='auto' picked {enc!r}, expected 'grouped'")
+        kname = "pell_step_unit" if enc == "unit" else "pell_step_grouped"
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).split(".")[-1]
+            A = A32 if dt == torch.float32 else dataclasses.replace(A32, vals=A32.vals.to(dt))
+            X = torch.zeros(A.n_x, dtype=dt, device="cuda")
+            P = torch.zeros_like(X)
+            X[:n] = torch.as_tensor(x, dtype=dt, device="cuda")
+            P[:n] = torch.as_tensor(vp, dtype=dt, device="cuda")
+            kern = lambda: cuda_pell.pell_step(A, X, P, d, sb)  # noqa: E731
+            plain = lambda: pell.pell_step_ref(A, X, P, d, sb)  # noqa: E731
+            err, abs_err = check_row(torch, f"{kname}/{enc}", name, kern(), plain())
+            ms = time_ms(torch, kern)
+            plain_ms = time_ms(torch, plain)
+            item = A.vals.element_size()
+            plane_bytes = sum(t.numel() * t.element_size()
+                              for t in (A.vals, A.lidx, A.cbase, A.span_row))
+            # planes, x and v_prev read once, y written once; 2 flops per
+            # nonzero and 4 per row for the shifts
+            nbytes = plane_bytes + (A.n_x + 2 * A.n_pad) * item
+            bms, by = bound_ms(nbytes, 2 * a32.nnz + 4 * A.n_pad, name)
+            log(f"kernel {kname} [{enc}, {name}] n={n} K={A.k_slots}: rel_err={err:.3e} "
+                f"(bound {BOUND[name]:.0e}) abs_err={abs_err:.3e} kernel {ms:.4f} ms "
+                f"({a32.nnz / (ms * 1e-3) / 1e9:.1f} Gnnz/s, "
+                f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s) plain {plain_ms:.4f} ms "
+                f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB; {bms / ms:.0%} of it) "
+                f"library {csr_ms:.4f} ms")
+            if dt == torch.float32 and enc != "grouped4":
+                out.append(dict(name=kname, route="cuda",
+                                source="ca_lanczos_tpu_torch/csrc/pell.cu",
+                                replaces="ca_lanczos_tpu/ops/pell.py:1030",
+                                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                bound_by=by, library_ms=csr_ms))
+            del A, X, P
+        del A32
+        torch.cuda.empty_cache()
+    return out
 
 
 def flagship(n: int):
@@ -187,36 +354,39 @@ def flagship(n: int):
     return a, exact
 
 
-def main_path(torch, label: str, n: int, prefer: str, fmt: str, launches_key: str):
+def main_path(torch, label: str, a32, exact, fmt: str, launches_key: str, totals: dict,
+              **route_kw):
+    """One solve_auto on the card with every launch counter set to 0 just
+    before and read just after; adds the counts to ``totals``."""
     from ca_lanczos_tpu_torch.config import LanczosConfig
     from ca_lanczos_tpu_torch.harness.auto import solve_auto
-    from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_spmv
 
-    t0 = time.perf_counter()
-    a, exact = flagship(n)
-    a32 = a.astype(np.float32)
-    del a
-    log(f"{label}: n={n} matrix built in {time.perf_counter() - t0:.1f}s")
-    before = {**cuda_spmv.LAUNCHES, **cuda_ilv.LAUNCHES}
+    n = a32.shape[0]
+    for counts in counters():
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = solve_auto(
         a32, np.ones(n), 32,
         LanczosConfig(n_wanted=10, s=8, tol=1e-4, max_restarts=200),
-        engine="fused", polish=10, over_lock=3, prefer=prefer, device="cuda",
+        engine="fused", polish=10, over_lock=3, device="cuda", **route_kw,
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    after = {**cuda_spmv.LAUNCHES, **cuda_ilv.LAUNCHES}
-    delta = {k: after[k] - before[k] for k in after}
+    delta = {k: v for counts in counters() for k, v in counts.items()}
+    for k, v in delta.items():
+        totals[k] = totals.get(k, 0) + v
     got = np.sort(np.asarray(res.eigs))[::-1]
-    err = float(np.max(np.abs(got - exact))) / 100.0 if len(got) == 10 else float("inf")
+    err = (float(np.max(np.abs(got - exact))) / abs(float(exact[0])) if len(got) == 10
+           else float("inf"))
     Q = res.Q_conv
     log(f"{label}: route={res.route.format} solver={res.solver} converged={res.converged} "
         f"n_restarts={res.n_restarts} escalated={res.escalated}")
     log(f"{label}: stages " + " ".join(f"{k}={v:.2f}s" for k, v in res.stage_seconds.items())
         + f" total={wall:.2f}s")
     log(f"{label}: eig_rel_err={err:.3e} (bound 1e-6) "
-        f"max_polish_resid/100={float(np.max(res.polish_resid)) / 100:.3e} "
+        f"max_polish_resid/|A|={float(np.max(res.polish_resid)) / abs(float(exact[0])):.3e} "
         f"launches={delta}")
     log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     checks = {
@@ -251,37 +421,52 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase0(torch)
-    log(f"phase 0 (card, build): {time.perf_counter() - t0:.1f}s")
+    log(f"phase 0 (card, builds): {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
-    rows = phase1(torch)
+    rows = phase1_dia(torch)
+    a, _ = pell_operator(PELL_N)
+    pell_exact = np.load(os.path.join(ROOT, "exp", f"pell_10m_oracle_{PELL_N}.npz"))["exact"]
+    a32 = a.astype(np.float32)
+    del a
+    log(f"PELL oracle matrix: n={PELL_N} nnz={a32.nnz} built in "
+        f"{time.perf_counter() - t0:.1f}s (from the start of phase 1)")
+    rows += phase1_pell(torch, a32)
     log(f"phase 1 (kernels vs plain): {time.perf_counter() - t0:.1f}s")
 
-    from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_spmv
-
-    for counts in (cuda_spmv.LAUNCHES, cuda_ilv.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-    torch.cuda.reset_peak_memory_stats()
+    totals: dict = {}
     t0 = time.perf_counter()
-    main_path(torch, "phase 2 (main path A, DIA/K1)", 11010048, "dia", "dia",
-              "dia_powers_fused")
+    fa, exact = flagship(11010048)
+    main_path(torch, "phase 2 (main path A, DIA/K1)", fa.astype(np.float32), exact, "dia",
+              "dia_powers_fused", totals, prefer="dia")
+    del fa
     log(f"phase 2: {time.perf_counter() - t0:.1f}s")
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    main_path(torch, "phase 3 (main path B, ilv/K3)", 4194304, "auto", "ilv",
-              "dia_powers_ilv")
+    fb, exact = flagship(4194304)
+    main_path(torch, "phase 3 (main path B, ilv/K3)", fb.astype(np.float32), exact, "ilv",
+              "dia_powers_ilv", totals, prefer="auto")
+    del fb
     log(f"phase 3: {time.perf_counter() - t0:.1f}s")
-    launches = {**cuda_spmv.LAUNCHES, **cuda_ilv.LAUNCHES}
+    t0 = time.perf_counter()
+    # phase 1 showed that encoding="auto" picks grouped on this matrix
+    main_path(torch, "phase C (main path C, PELL grouped/K5)", a32, pell_exact, "pell",
+              "pell_step_grouped", totals, prefer="pell", encoding="auto")
+    log(f"phase C: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    main_path(torch, "phase D (main path D, PELL unit/K4)", a32, pell_exact, "pell",
+              "pell_step_unit", totals, prefer="pell", encoding="unit")
+    log(f"phase D: {time.perf_counter() - t0:.1f}s")
+
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = totals.get(row["name"], 0)
     idle = [row["name"] for row in rows if row["launches"] == 0]
     if idle:
-        raise AssertionError(f"kernels of the path not launched by the main path: {idle}")
+        raise AssertionError(f"kernels of the path not launched by the main paths: {idle}")
     log(f"total: {time.perf_counter() - t00:.1f}s")
     print(json.dumps({"kernels": [
-        {k: row[k] for k in ("name", "route", "source", "replaces", "launches",
-                             "max_abs_err", "ms", "plain_ms")} for row in rows]}))
+        {k: row[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err",
+                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

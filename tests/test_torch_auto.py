@@ -1,12 +1,13 @@
-"""PyTorch port, the slice as a whole: ``solve_auto`` (route -> probe ->
+"""PyTorch port, the slices as a whole: ``solve_auto`` (route -> probe ->
 fused solve -> f64 polish) against the JAX package on the two-stage
-operator of tests/test_harness.py TestTwoStagePolish, ``make_operator``'s
-interleaved route, the legs that are not ported, and the package's
-independence from JAX.
+operator of tests/test_harness.py TestTwoStagePolish and on a small
+general-sparsity (PELL-routed) operator, ``make_operator``'s interleaved
+and PELL routes, the legs that are not ported, the entry points' CUDA
+default, and the package's independence from JAX.
 
-Eigenvalues: rtol 1e-10 against JAX and against the exact tridiagonal
-eigenvalues of the matrix the polish sees (the f32-rounded one for f32
-input); the smallest end is 1e-7 against the exact values (see its test)."""
+Eigenvalues: rtol 1e-10 against JAX and against the exact eigenvalues of
+the matrix the polish sees (the f32-rounded one for f32 input); the
+smallest end is 1e-7 against the exact values (see its test)."""
 
 import os
 import subprocess
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import scipy.linalg as sla
 import scipy.sparse as sp
+import scipy.sparse.linalg as spla
 import torch
 
 from ca_lanczos_tpu.config import LanczosConfig as JConfig
@@ -25,6 +27,7 @@ from ca_lanczos_tpu_torch.config import LanczosConfig
 from ca_lanczos_tpu_torch.harness.auto import solve_auto
 from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
 from ca_lanczos_tpu_torch.ops.formats import make_operator
+from ca_lanczos_tpu_torch.ops.pell import PellMatrix
 from ca_lanczos_tpu_torch.utils.interop import operator_from_numpy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,7 +65,7 @@ def test_solve_auto_matches_jax(dtype, prefer):
     kw = dict(engine="fused", polish=6, over_lock=3, prefer=prefer)
     cfg = dict(n_wanted=5, s=8, tol=1e-4, max_restarts=100)
     rj = jsolve_auto(a, r, 32, JConfig(**cfg), **kw)
-    rt = solve_auto(a, r, 32, LanczosConfig(**cfg), **kw)
+    rt = solve_auto(a, r, 32, LanczosConfig(**cfg), **kw, device="cpu")
     assert rt.converged and rt.solver == rj.solver == "restarted_ca_lanczos+polish6"
     assert rt.route.format == rj.route.format == "dia"
     assert rt.route.perm is None and rj.route.perm is None
@@ -84,7 +87,7 @@ def test_solve_auto_smallest_matches_jax():
     kw = dict(engine="fused", polish=6, over_lock=2, which="smallest")
     cfg = dict(n_wanted=3, s=4, tol=1e-5, max_restarts=100)
     rj = jsolve_auto(a, r, 32, JConfig(**cfg), **kw)
-    rt = solve_auto(a, r, 32, LanczosConfig(**cfg), **kw)
+    rt = solve_auto(a, r, 32, LanczosConfig(**cfg), **kw, device="cpu")
     assert rt.converged and rt.solver == rj.solver and rt.route.format == rj.route.format
     got = np.sort(rt.eigs)
     np.testing.assert_allclose(got, np.sort(rj.eigs), rtol=1e-10)
@@ -95,12 +98,12 @@ def test_solve_auto_smallest_matches_jax():
 def test_interleaved_route_matches_jax(n, prefer):
     a = _op(n).astype(np.float32)
     Aj, rj = jmake_operator(a, prefer=prefer, ilv=True)
-    At, rt = make_operator(a, prefer=prefer, ilv=True)
+    At, rt = make_operator(a, prefer=prefer, ilv=True, device="cpu")
     assert rt.format == rj.format == "ilv"
     assert rt.n_orig == rj.n_orig == n
     np.testing.assert_array_equal(rt.perm, rj.perm)
     assert isinstance(At, IlvDiaMatrix)
-    ref = operator_from_numpy(Aj)
+    ref = operator_from_numpy(Aj, device="cpu")
     torch.testing.assert_close(At.data_il, ref.data_il, rtol=0, atol=0)
     torch.testing.assert_close(At.dia_data, ref.dia_data, rtol=0, atol=0)
     # apply/restore: numpy and tensors agree and invert each other
@@ -114,7 +117,7 @@ def test_interleaved_route_matches_jax(n, prefer):
 def test_auto_route_on_cpu_stays_dia_like_jax():
     a = _op(16384).astype(np.float32)
     _, rj = jmake_operator(a)
-    _, rt = make_operator(a)
+    _, rt = make_operator(a, device="cpu")
     assert rt.format == rj.format == "dia"
 
 
@@ -123,7 +126,7 @@ def test_permuted_route_polishes_on_host():
     a = _op(16384)
     r = np.random.default_rng(3).standard_normal(16384)
     res = solve_auto(a, r, 32, LanczosConfig(n_wanted=3, s=8, tol=1e-6, max_restarts=100),
-                     engine="fused", polish=4, over_lock=2, prefer="ilv")
+                     engine="fused", polish=4, over_lock=2, prefer="ilv", device="cpu")
     assert res.route.format == "ilv" and res.converged
     np.testing.assert_allclose(np.sort(res.eigs)[::-1], _exact(a)[::-1][:3], rtol=1e-10)
     assert res.Q_conv.shape == (16384, 3)
@@ -134,22 +137,63 @@ def test_unported_legs_raise():
     r = np.ones(a.shape[0])
     cfg = LanczosConfig(n_wanted=3, s=4, tol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        solve_auto(a, r, 32, cfg, engine="host", prefer="dia")
+        solve_auto(a, r, 32, cfg, engine="host", prefer="dia", device="cpu")
     # one restart cannot converge: the ladder's next leg (the IRL) raises
     with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
         solve_auto(a, r, 32, LanczosConfig(n_wanted=3, s=4, tol=1e-12, max_restarts=1),
-                   engine="fused", prefer="dia")
+                   engine="fused", prefer="dia", device="cpu")
+
+
+def _pell_op(n, bw=8, k=4, seed=0):
+    """exp/pell_10m_e2e.py's operator (random columns inside a width-8
+    band, a separated top) at a small n."""
+    rng = np.random.default_rng(seed)
+    d = np.linspace(1.0, 90.0, n)
+    d[-10:] = np.linspace(95.0, 100.0, 10)
+    rows = np.repeat(np.arange(n), k)
+    pick = np.argsort(rng.random((n, 2 * bw + 1)), axis=1)[:, :k]
+    cols = np.clip(np.arange(n)[:, None] + (pick - bw), 0, n - 1).ravel()
+    off = sp.csr_matrix(((rng.standard_normal(n * k) * 1e-3).ravel(), (rows, cols)), (n, n))
+    a = off + off.T + sp.diags(d)
+    a.sum_duplicates()
+    return a.tocsr()
+
+
+def test_solve_auto_pell_matches_jax():
+    # the PELL main path: forced pell route, K5 (grouped) powers, device
+    # DIA polish (17 distinct diagonals, as at 11M rows)
+    a = _pell_op(4096).astype(np.float32)
+    r = np.random.default_rng(1).standard_normal(a.shape[0])
+    kw = dict(engine="fused", polish=4, over_lock=3, prefer="pell", tile=512, encoding="auto")
+    cfg = dict(n_wanted=5, s=8, tol=1e-4, max_restarts=100)
+    rj = jsolve_auto(a, r, 32, JConfig(**cfg), **kw)
+    rt = solve_auto(a, r, 32, LanczosConfig(**cfg), **kw, device="cpu")
+    assert rt.converged and rt.solver == rj.solver == "restarted_ca_lanczos+polish4"
+    assert rt.route.format == rj.route.format == "pell" and rt.route.perm is None
+    got = np.sort(rt.eigs)[::-1]
+    np.testing.assert_allclose(got, np.sort(rj.eigs)[::-1], rtol=1e-10)
+    exact = np.sort(spla.eigsh(a.astype(np.float64), k=5, which="LA",
+                               return_eigenvectors=False))[::-1]
+    np.testing.assert_allclose(got, exact, rtol=1e-10)
+    assert rt.Q_conv.shape == (a.shape[0], 5) and bool(torch.isfinite(rt.Q_conv).all())
 
 
 def test_pell_rung_raises():
+    # the PELL rung's encoder raises on window overflow: forced, the error
+    # reaches the caller (as in JAX); routed, the matrix moves on
     rng = np.random.default_rng(4)
     a = sp.random(3000, 3000, density=0.002, random_state=rng, format="csr")
     a = (a + a.T + sp.eye(3000)).tocsr()
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_operator(a)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_operator(a, prefer="pell")
-    A, route = make_operator(a, prefer="ell")
+    kw = dict(prefer="pell", sw=1024, max_windows=1)
+    with pytest.raises(ValueError, match="window overflow") as ej:
+        jmake_operator(a, **kw)
+    with pytest.raises(ValueError, match="window overflow") as et:
+        make_operator(a, **kw, device="cpu")
+    assert str(et.value) == str(ej.value)
+    At, rt = make_operator(a, device="cpu")
+    _, rj = jmake_operator(a)
+    assert rt.format == rj.format == "pell" and isinstance(At, PellMatrix)
+    A, route = make_operator(a, prefer="ell", device="cpu")
     assert route.format == "ell"
     x = np.random.default_rng(5).standard_normal(3000)
     np.testing.assert_allclose(A.matvec(torch.as_tensor(x)).numpy(), a @ x, rtol=1e-12)
@@ -170,7 +214,7 @@ def test_rcm_retry_and_ell_fallback_match_jax(kind):
                            (rows, rng.integers(0, n, rows.size))), (n, n))
         a = (b + b.T + sp.eye(n)).tocsr()
     Aj, rj = jmake_operator(a, max_windows=2)
-    At, rt = make_operator(a, max_windows=2)
+    At, rt = make_operator(a, max_windows=2, device="cpu")
     assert rt.format == rj.format == ("dia" if kind == "shuffled_band" else "ell")
     np.testing.assert_array_equal(rt.perm, rj.perm)
     assert (rt.bandwidth_before, rt.bandwidth_after) == (rj.bandwidth_before,
@@ -181,20 +225,67 @@ def test_rcm_retry_and_ell_fallback_match_jax(kind):
     np.testing.assert_allclose(y, a @ x, rtol=1e-12, atol=1e-12)
     if kind == "expander":
         with pytest.raises(ValueError, match="fallbacks are disabled"):
-            make_operator(a, max_windows=2, allow_ell_fallback=False)
+            make_operator(a, max_windows=2, allow_ell_fallback=False, device="cpu")
 
 
 def test_polish_needs_f64_source():
     from ca_lanczos_tpu_torch.ops.spmv import EllMatrix
 
-    A = EllMatrix.from_scipy(_op(512).astype(np.float32))
+    A = EllMatrix.from_scipy(_op(512).astype(np.float32), device="cpu")
     with pytest.raises(ValueError, match="f64 operator source"):
-        solve_auto(A, np.ones(512), 32, LanczosConfig(n_wanted=3), polish=2)
+        solve_auto(A, np.ones(512), 32, LanczosConfig(n_wanted=3), polish=2, device="cpu")
+
+
+def _entry_points():
+    from ca_lanczos_tpu_torch.ops import formats, spmv
+    from ca_lanczos_tpu_torch.utils import matrices
+
+    band = _op(3000)
+    return {
+        "make_operator": lambda: make_operator(band),
+        "make_operator_pell": lambda: make_operator(band, prefer="pell"),
+        "solve_auto": lambda: solve_auto(band, np.ones(3000), 32, LanczosConfig(n_wanted=3),
+                                         engine="fused"),
+        "dia_from_scipy": lambda: formats.dia_from_scipy(band),
+        "PellMatrix.from_scipy": lambda: PellMatrix.from_scipy(band),
+        "EllMatrix.from_scipy": lambda: spmv.EllMatrix.from_scipy(band),
+        "DiaMatrix.from_dense": lambda: spmv.DiaMatrix.from_dense(np.eye(4)),
+        "operator_from_numpy": lambda: operator_from_numpy(
+            spmv.DenseMatrix(a=torch.eye(4))),
+        "laplacian_1d": lambda: matrices.laplacian_1d(8),
+        "laplacian_2d": lambda: matrices.laplacian_2d(3, 3),
+        "diag_spectrum": lambda: matrices.diag_spectrum(8),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_cuda(name):
+    # without a card the default device raises (torch's own error on
+    # .to("cuda")): nothing falls back to the CPU
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        _entry_points()[name]()
+
+
+def test_load_operator_defaults_to_cuda(tmp_path):
+    from ca_lanczos_tpu_torch.ops.formats import load_operator_npz, save_operator
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    path = str(tmp_path / "op.npz")
+    save_operator(path, *make_operator(_op(3000), prefer="pell", device="cpu"))
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        load_operator_npz(path)
+    assert isinstance(load_operator_npz(path, device="cpu")[0], PellMatrix)
 
 
 def test_port_never_imports_jax():
     code = ("import sys; import ca_lanczos_tpu_torch.harness.auto, "
-            "ca_lanczos_tpu_torch.utils.interop, ca_lanczos_tpu_torch.ops.formats; "
+            "ca_lanczos_tpu_torch.utils.interop, ca_lanczos_tpu_torch.ops.formats, "
+            "ca_lanczos_tpu_torch.ops.pell, ca_lanczos_tpu_torch.ops.cuda_pell, "
+            "ca_lanczos_tpu_torch.ops._pell_native, ca_lanczos_tpu_torch.utils._native_build, "
+            "chip_smoke, chip_profile; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ca_lanczos_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

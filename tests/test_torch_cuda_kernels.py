@@ -1,7 +1,8 @@
-"""PyTorch port: the CUDA kernels K1-K3 against their plain versions on
+"""PyTorch port: the CUDA kernels K1-K5 against their plain versions on
 the card, including the fallbacks (K1 -> K2 steps, K3 -> chained single
-steps).  Needs a CUDA device and nvcc; skips elsewhere.  This file
-imports no JAX, so on a machine without it run
+steps) and the three PELL encodings (K4 unit, K5 grouped and grouped4).
+Needs a CUDA device and nvcc; skips elsewhere.  This file imports no JAX,
+so on a machine without it run
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda_kernels.py
 
@@ -10,9 +11,10 @@ sums run in another order)."""
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
-from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_spmv
+from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_pell, cuda_spmv, pell
 from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix, spmv
 
 pytestmark = pytest.mark.requires_cuda
@@ -99,3 +101,64 @@ def test_spmv_of_a_dia_vector_is_one_k2_launch(cuda):
     y = spmv(A, X)
     assert cuda_spmv.LAUNCHES["dia_power_step"] == before + 1
     assert _rel(y, A.matvec(X)) <= BOUND[torch.float32]
+
+
+def _pell_matrix(n, seed=3):
+    """Random columns in a +-300 band, plus a periodic wrap that needs a
+    second x-span window at sw=1024, n not a multiple of the tile."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), 6)
+    cols = np.clip(rows + rng.integers(-300, 301, rows.shape), 0, n - 1)
+    a = sp.csr_matrix((rng.standard_normal(rows.shape), (rows, cols)), (n, n)).tolil()
+    a[0, n - 1] = a[n - 1, 0] = 0.5
+    a = sp.csr_matrix(a)
+    a.sum_duplicates()
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("enc", ["unit", "grouped", "grouped4"])
+def test_k4_k5_match_plain(cuda, enc, dtype):
+    n = 40_000 + 37
+    a = _pell_matrix(n)
+    A = pell.PellMatrix.from_scipy(a.astype(np.float64 if dtype == torch.float64
+                                            else np.float32),
+                                   sw=4096, encoding=enc, device=cuda)
+    assert A.enc == enc and A.n_win >= 2 and A.dtype == dtype
+    rng = np.random.default_rng(5)
+    x = torch.zeros(A.n_x, dtype=dtype, device=cuda)
+    vp = torch.zeros_like(x)
+    x[:n] = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    vp[:n] = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    key = "pell_step_unit" if enc == "unit" else "pell_step_grouped"
+    before = cuda_pell.LAUNCHES[key]
+    y = cuda_pell.pell_step(A, x, vp, 0.7, -0.3)
+    assert cuda_pell.LAUNCHES[key] == before + 1
+    yr = pell.pell_step_ref(A, x, vp, 0.7, -0.3)
+    assert _rel(y, yr) <= BOUND[dtype]
+    y0 = cuda_pell.pell_step(A, x)  # no v_prev, no shifts: the plain product
+    want = torch.as_tensor(a @ x[:n].cpu().numpy().astype(np.float64), device=cuda)
+    assert _rel(y0[:n].double(), want) <= BOUND[dtype]
+    s = 4
+    diag, sub = np.linspace(-0.2, 0.2, s), np.r_[0.0, np.full(s - 1, 0.05)]
+    V = pell.matrix_powers_pell(A, x[:n], s, diag, sub)
+    assert cuda_pell.LAUNCHES[key] == before + 2 + s
+    Vr = pell.matrix_powers_pell(A.to("cpu"), x[:n].cpu(), s, diag, sub)
+    assert _rel(V.T.contiguous().cpu(), Vr.T.contiguous()) <= BOUND[dtype]
+    torch.cuda.synchronize()
+
+
+def test_spmv_of_a_pell_vector_is_one_launch(cuda):
+    a = _pell_matrix(9000, seed=4).astype(np.float32)
+    A = pell.PellMatrix.from_scipy(a, encoding="grouped", device=cuda)
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(9000), dtype=torch.float32,
+                        device=cuda)
+    before = dict(cuda_pell.LAUNCHES)
+    y = spmv(A, x)
+    assert cuda_pell.LAUNCHES["pell_step_grouped"] == before["pell_step_grouped"] + 1
+    assert cuda_pell.LAUNCHES["pell_step_unit"] == before["pell_step_unit"]
+    assert _rel(y, A.to("cpu").matvec(x.cpu()).to(cuda)) <= BOUND[torch.float32]
+    with pytest.raises(TypeError):
+        cuda_pell.pell_step(A, torch.zeros(A.n_x, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        cuda_pell.pell_step(A, x[:100].contiguous())

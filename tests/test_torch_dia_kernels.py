@@ -79,7 +79,7 @@ def test_k1_plain_matches_pallas_interpret(offs, s, newton, dtype):
     cj = jnp.asarray(np.zeros((s, 2)) if c is None else c, dtype)
     Vj, lj = _dia_powers_fused(dia_flat_padded(Aj, W), jnp.asarray(x), cj, offsets, s,
                                tile=tile, interpret=True, with_coefs=c is not None)
-    At = operator_from_numpy(Aj)
+    At = operator_from_numpy(Aj, device="cpu")
     V, last = cuda_spmv.dia_powers_fused(At.data, torch.as_tensor(x), c, offsets, s)
     assert V.dtype == At.dtype and V.shape == (s, n)
     _close_per_step(V.numpy(), np.asarray(Vj), RTOL[dtype])
@@ -98,7 +98,7 @@ def test_k2_plain_matches_pallas_interpret(offs, dtype):
     c = np.array([0.3, 0.02])
     yj = _dia_power_step(Aj.data, jnp.asarray(x), jnp.asarray(vp), jnp.asarray(c, dtype),
                          offsets, tile=1024, interpret=True)
-    At = operator_from_numpy(Aj)
+    At = operator_from_numpy(Aj, device="cpu")
     y = cuda_spmv.dia_power_step(At.data, torch.as_tensor(x), torch.as_tensor(vp), c, offsets)
     _close_per_step(y.numpy(), np.asarray(yj), RTOL[dtype])
     # no coefficients: the plain DIA product
@@ -116,7 +116,7 @@ def test_unaligned_n_matches_xla_newton_scan(dtype):
     c = _coefs(s, True, seed=7)
     Vj = np.asarray(_newton_scan(Aj, jnp.asarray(x), s, jnp.asarray(c[:, 0], dtype),
                                  jnp.asarray(c[:, 1], dtype)))
-    At = operator_from_numpy(Aj)
+    At = operator_from_numpy(Aj, device="cpu")
     V = cuda_spmv.matrix_powers_dia_fused(At, torch.as_tensor(x), s, c[:, 0], c[:, 1])
     _close_per_step(V.numpy().T, Vj.T, RTOL[dtype])
     # the K2-chain fallback computes the same block
@@ -137,13 +137,13 @@ def test_matrix_powers_dispatcher_matches_jax(basis):
     B[np.arange(1, s + 1), np.arange(s)] = 1.0
     B[0, 1] = -0.01
     Vj = np.asarray(jmatrix_powers(Aj, jnp.asarray(x), s, B, JBasis(basis.value)))
-    V = matrix_powers(operator_from_numpy(Aj), torch.as_tensor(x), s, B, basis)
+    V = matrix_powers(operator_from_numpy(Aj, device="cpu"), torch.as_tensor(x), s, B, basis)
     _close_per_step(V.numpy().T, Vj.T, 1e-12)
 
 
 def test_complex_shifts_take_the_plain_recurrence():
     n, s = 512, 2
-    At = operator_from_numpy(_banded(n, OFFSETS["tri"], np.float64))
+    At = operator_from_numpy(_banded(n, OFFSETS["tri"], np.float64), device="cpu")
     B = np.zeros((s + 1, s), complex)
     B[0, 0], B[1, 1] = 0.1 + 0.2j, 0.1 - 0.2j
     B[1, 0] = B[2, 1] = 1.0

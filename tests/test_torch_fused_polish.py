@@ -44,7 +44,7 @@ def test_fused_matches_jax_on_diag_spectrum():
     # as tests/test_harness.py TestSolveAutoFusedEngine
     n = 400
     Aj = jdiag_spectrum(n, 1.0, 100.0)
-    A = operator_from_numpy(Aj)
+    A = operator_from_numpy(Aj, device="cpu")
     kw = dict(n_wanted=6, s=4, tol=1e-8)
     rj = jfused(Aj, jnp.ones(n), 32, **kw)
     rt = fused_restarted_ca_lanczos(A, torch.ones(n, dtype=torch.float64), 32, **kw)
@@ -68,7 +68,7 @@ def test_fused_mixed_precision_f32_and_burst_hook():
     data = np.zeros((3, 2000), np.float32)
     data[0, 1:], data[1], data[2, :-1] = off, d, off
     Aj = JDia(data=jnp.asarray(data), offsets=(-1, 0, 1))
-    A = operator_from_numpy(Aj)
+    A = operator_from_numpy(Aj, device="cpu")
     bursts = []
     rt = fused_restarted_ca_lanczos(A, np.ones(2000), 32, n_wanted=3, s=8, tol=1e-5,
                                     mixed_precision=True, cycles_per_call=2,
@@ -112,8 +112,8 @@ def _polish_inputs(k=5, noise=1e-5):
 def test_device_polish_matches_jax():
     _, Aj, X, exact = _polish_inputs()
     wj, rj, Qj = jpolish(Aj, jnp.asarray(X, jnp.float32), iters=3, depth=4)
-    w, r, Q = rayleigh_ritz_polish(operator_from_numpy(Aj), torch.as_tensor(X), iters=3,
-                                   depth=4)
+    w, r, Q = rayleigh_ritz_polish(operator_from_numpy(Aj, device="cpu"), torch.as_tensor(X),
+                                   iters=3, depth=4)
     np.testing.assert_allclose(w, np.asarray(wj), rtol=1e-10)
     np.testing.assert_allclose(np.sort(w)[::-1], exact, rtol=1e-10)
     assert np.all(r <= 10 * np.asarray(rj) + 1e-12) and np.all(np.asarray(rj) <= 10 * r + 1e-12)
@@ -133,7 +133,7 @@ def test_host_polish_matches_jax():
 
 def test_polish_rejects_f32_planes():
     _, Aj, X, _ = _polish_inputs(k=2)
-    A = operator_from_numpy(Aj)
+    A = operator_from_numpy(Aj, device="cpu")
     A32 = type(A)(data=A.data.float(), offsets=A.offsets)
     with pytest.raises(ValueError, match="f64"):
         rayleigh_ritz_polish(A32, torch.as_tensor(X))

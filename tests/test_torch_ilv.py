@@ -56,7 +56,7 @@ def test_k3_plain_matches_pallas_interpret(s, with_coefs, dtype):
     Vj, lj = jilv.dia_powers_ilv(
         jnp.asarray(jilv.ilv_data_tiled(Aj, TQ)), jnp.asarray(jilv.ilv_encode(x)),
         jnp.asarray(c, dtype), Aj.offsets, s, TQ, N, interpret=True, with_coefs=with_coefs)
-    At = operator_from_numpy(jilv.IlvDiaMatrix.from_dia(Aj, tq=TQ, keep_dia=True))
+    At = operator_from_numpy(jilv.IlvDiaMatrix.from_dia(Aj, tq=TQ, keep_dia=True), device="cpu")
     V, last = cuda_ilv.dia_powers_ilv(At.data_il, torch.as_tensor(jilv.ilv_encode(x)),
                                       c if with_coefs else None, At.offsets, s)
     _close_per_step(V.numpy(), np.asarray(Vj), RTOL[dtype])
@@ -80,7 +80,7 @@ def test_codec_round_trips_and_matches_jax():
 
 
 def test_halo_overflow_raises_like_jax():
-    A = operator_from_numpy(_op(N, np.float32))
+    A = operator_from_numpy(_op(N, np.float32), device="cpu")
     Aw = DiaMatrix(data=torch.zeros((3, N)), offsets=(-700, 0, 700))
     Ail = cuda_ilv.IlvDiaMatrix.from_dia(Aw)
     assert Ail.s_max == cuda_ilv.WQ // 88
@@ -96,7 +96,7 @@ def test_halo_overflow_raises_like_jax():
 def test_carrier_matvec_and_powers_match_jax():
     Aj = _op(N, np.float32, seed=2)
     Ij = jilv.IlvDiaMatrix.from_dia(Aj, tq=TQ, keep_dia=True)
-    It = operator_from_numpy(Ij)
+    It = operator_from_numpy(Ij, device="cpu")
     assert It.shape == Ij.shape and It.nnz == Ij.nnz
     rng = np.random.default_rng(3)
     x = jilv.ilv_encode(rng.standard_normal(N).astype(np.float32))
@@ -114,7 +114,8 @@ def test_carrier_matvec_and_powers_match_jax():
 def test_chained_single_steps_equal_one_fused_call():
     # the wrapper's fallback when the s-step window does not fit: s
     # single steps chained through x_prev give the same block
-    A = cuda_ilv.IlvDiaMatrix.from_dia(operator_from_numpy(_op(N, np.float64, seed=4)))
+    A = cuda_ilv.IlvDiaMatrix.from_dia(
+        operator_from_numpy(_op(N, np.float64, seed=4), device="cpu"))
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(N))
     c = np.array([[0.1, 0.0], [0.2, 0.03], [-0.1, 0.02]])
     V, last = cuda_ilv.dia_powers_ilv_ref(A.data_il, x, c, A.offsets, 3)
@@ -138,7 +139,7 @@ def test_pick_tq_fits_shared_memory():
 
 
 def test_block_product_needs_the_normal_layout_planes():
-    A = cuda_ilv.IlvDiaMatrix.from_dia(operator_from_numpy(_op(N, np.float32, seed=6)),
-                                       keep_dia=False)
+    A = cuda_ilv.IlvDiaMatrix.from_dia(
+        operator_from_numpy(_op(N, np.float32, seed=6), device="cpu"), keep_dia=False)
     with pytest.raises(ValueError, match="keep_dia=True"):
         A.matvec(torch.zeros((N, 2)))

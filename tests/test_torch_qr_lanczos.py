@@ -100,7 +100,7 @@ def test_mixed_precision_helpers_match_jax():
 @pytest.mark.parametrize("fixture", ["lap1", "lap2"])
 def test_lanczos_T_matches_jax(orth, fixture):
     Aj = jlap1(500) if fixture == "lap1" else jlap2(20, 25)
-    A = operator_from_numpy(Aj)
+    A = operator_from_numpy(Aj, device="cpu")
     r = np.random.default_rng(3).standard_normal(A.n)
     rj = jlanczos(Aj, jnp.asarray(r), 24, JOrth(orth))
     rt = lanczos(A, torch.as_tensor(r), 24, Orth(orth))
@@ -113,7 +113,7 @@ def test_lanczos_T_matches_jax(orth, fixture):
 
 
 def test_lanczos_unported_modes_raise():
-    A = laplacian_1d(50)
+    A = laplacian_1d(50, device="cpu")
     r = torch.ones(50, dtype=torch.float64)
     for orth in (Orth.PERIODIC, Orth.SELECTIVE):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -125,7 +125,7 @@ def test_lanczos_unported_modes_raise():
 @pytest.mark.parametrize("s", [4, 8])
 def test_build_basis_matrix_matches_jax(s):
     Aj = jlap2(30, 30)
-    A = operator_from_numpy(Aj)
+    A = operator_from_numpy(Aj, device="cpu")
     q = np.random.default_rng(4).standard_normal(A.n)
     q /= np.linalg.norm(q)
     Bj = np.asarray(jbuild(Aj, jnp.asarray(q), s, "newton"))
@@ -153,8 +153,10 @@ def test_copied_leja_and_newton_are_identical(variant):
 
 
 def test_fixtures_match_jax_planes():
-    np.testing.assert_array_equal(laplacian_1d(40).data.numpy(), np.asarray(jlap1(40).data))
-    np.testing.assert_array_equal(laplacian_2d(5, 6).data.numpy(),
+    np.testing.assert_array_equal(laplacian_1d(40, device="cpu").data.numpy(),
+                                  np.asarray(jlap1(40).data))
+    np.testing.assert_array_equal(laplacian_2d(5, 6, device="cpu").data.numpy(),
                                   np.asarray(jlap2(5, 6).data))
-    assert laplacian_2d(5, 6).offsets == jlap2(5, 6).offsets
-    np.testing.assert_allclose(diag_spectrum(10).data.numpy()[0], np.linspace(1, 100, 10))
+    assert laplacian_2d(5, 6, device="cpu").offsets == jlap2(5, 6).offsets
+    np.testing.assert_allclose(diag_spectrum(10, device="cpu").data.numpy()[0],
+                               np.linspace(1, 100, 10))

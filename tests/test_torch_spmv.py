@@ -53,7 +53,7 @@ def _sparse(n, seed=0):
 def test_dia_matvec_matches_jax(offsets, ncols):
     n = 1000
     Aj = _banded(n, offsets)
-    At = operator_from_numpy(Aj)
+    At = operator_from_numpy(Aj, device="cpu")
     rng = np.random.default_rng(1)
     x = rng.standard_normal((n, ncols) if ncols else n)
     want = np.asarray(Aj.matvec(jnp.asarray(x)))
@@ -63,10 +63,10 @@ def test_dia_matvec_matches_jax(offsets, ncols):
 
 def test_dia_to_dense_and_from_dense():
     Aj = _banded(64, (-3, 0, 2))
-    At = operator_from_numpy(Aj)
+    At = operator_from_numpy(Aj, device="cpu")
     dense = np.asarray(Aj.to_dense())
     np.testing.assert_array_equal(At.to_dense().numpy(), dense)
-    back = tspmv.DiaMatrix.from_dense(dense)
+    back = tspmv.DiaMatrix.from_dense(dense, device="cpu")
     assert back.offsets == (-3, 0, 2)
     np.testing.assert_array_equal(back.to_dense().numpy(), dense)
 
@@ -75,8 +75,8 @@ def test_dia_to_dense_and_from_dense():
 def test_ell_matvec_matches_jax(ncols):
     a = _sparse(500)
     Aj = jspmv.EllMatrix.from_scipy(a)
-    At = operator_from_numpy(Aj)
-    ref = tspmv.EllMatrix.from_scipy(a)
+    At = operator_from_numpy(Aj, device="cpu")
+    ref = tspmv.EllMatrix.from_scipy(a, device="cpu")
     np.testing.assert_array_equal(At.vals.numpy(), ref.vals.numpy())
     np.testing.assert_array_equal(At.cols.numpy(), ref.cols.numpy())
     x = np.random.default_rng(2).standard_normal((500, ncols) if ncols else 500)
@@ -89,7 +89,7 @@ def test_ell_matvec_matches_jax(ncols):
 def test_dense_matvec_matches_jax():
     a = np.random.default_rng(3).standard_normal((64, 64))
     Aj = jspmv.DenseMatrix(a=jnp.asarray(a))
-    At = operator_from_numpy(Aj)
+    At = operator_from_numpy(Aj, device="cpu")
     x = np.random.default_rng(4).standard_normal(64)
     np.testing.assert_allclose(At.matvec(torch.as_tensor(x)).numpy(),
                                np.asarray(Aj.matvec(jnp.asarray(x))), rtol=RTOL)
@@ -104,21 +104,21 @@ def test_normest_matches_jax(kind):
         Aj = jspmv.EllMatrix.from_scipy(_sparse(n, seed=6))
     else:
         Aj = jspmv.DenseMatrix(a=jnp.asarray(_sparse(n, seed=7).toarray()))
-    got = tspmv.normest(operator_from_numpy(Aj))
+    got = tspmv.normest(operator_from_numpy(Aj, device="cpu"))
     want = jspmv.normest(Aj)
     assert got == pytest.approx(want, rel=1e-12)
 
 
 def test_normest_f32_operator_runs_in_f32():
     Aj = _banded(300, (-1, 0, 1), seed=8)
-    At = operator_from_numpy(Aj)
+    At = operator_from_numpy(Aj, device="cpu")
     A32 = tspmv.DiaMatrix(data=At.data.float(), offsets=At.offsets)
     # f32 power iteration: same estimate to f32 accuracy
     assert tspmv.normest(A32) == pytest.approx(tspmv.normest(At), rel=1e-5)
 
 
 def test_spmv_is_matvec():
-    At = operator_from_numpy(_banded(100, (0, 1)))
+    At = operator_from_numpy(_banded(100, (0, 1)), device="cpu")
     x = torch.ones(100, dtype=torch.float64)
     torch.testing.assert_close(tspmv.spmv(At, x), At.matvec(x))
 
@@ -127,7 +127,7 @@ def test_spmv_sends_cuda_vectors_of_dia_to_k2_only():
     from ca_lanczos_tpu_torch.ops import cuda_spmv
 
     assert tspmv.CUDA_MATVEC[tspmv.DiaMatrix] is cuda_spmv.dia_matvec
-    At = operator_from_numpy(_banded(100, (-1, 0, 1)))
+    At = operator_from_numpy(_banded(100, (-1, 0, 1)), device="cpu")
     before = dict(cuda_spmv.LAUNCHES)
     torch.testing.assert_close(tspmv.spmv(At, torch.ones(100, dtype=torch.float64)),
                                At.matvec(torch.ones(100, dtype=torch.float64)))
