@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +47,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
     f"dia_powers_ilv_{t}": (
-        [_P, _P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P], _I)
+        [_P, _P, _I, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _P], _I)
     for t in ("f32", "f64")
 }
 
@@ -105,21 +105,68 @@ def _halo_guard(offsets: Sequence[int], s: int) -> None:
         )
 
 
-def pick_tq(nd: int, mc: int, s: int, dtype: torch.dtype) -> int:
-    """q-columns owned by one K3 block, or 0 when the s-step window does
-    not fit shared memory (the wrapper then chains s single steps).
-    Shared memory holds (nd + 2) * 8 * (tq + 2*s*mc) elements; prefer room
-    for two blocks per SM; for s > 1 require the halo to be at most the
-    tile, as for K1."""
+ROW_LANES = 64  # threads per interleaved row of a K3 block (512 = 8 rows)
+# The register kernels csrc/ilv_powers.cu instantiates: per element size,
+# diagonal capacity NDM -> window columns per thread CPT (Lq = 64*CPT).
+# Chosen so the per-thread coefficients (NDM*CPT values) stay in registers.
+REG_CPT = {4: {3: 4, 5: 4, 9: 4, 16: 2}, 8: {3: 4, 5: 4, 9: 2, 16: 2}}
+
+
+class IlvPlan(NamedTuple):
+    """One K3 launch: window columns ``lq`` = ``tq`` owned + 2 * ``hq``
+    halo, ``g`` guard columns per side of the step buffers, the register
+    kernel (``reg``) or the shared-memory fallback, and its shared memory
+    in bytes."""
+
+    lq: int
+    tq: int
+    hq: int
+    g: int
+    reg: bool
+    smem: int
+
+
+def ilv_smem(nd: int, lq: int, g: int, item: int, reg: bool) -> int:
+    """Shared memory of a K3 launch (csrc/ilv_powers.cu ``smem_bytes``):
+    the staged planes and two step buffers; the register kernel adds the
+    next tile's x and x_prev and ``g`` guard columns a side of the step
+    buffers, the fallback its (8, nd) source-row and carry tables."""
+    if reg:
+        return ((nd + 2) * J * lq + 2 * J * (lq + 2 * g)) * item
+    return (nd + 2) * J * lq * item + 2 * J * nd * 4
+
+
+def ilv_plan(nd: int, mc: int, s: int, dtype: torch.dtype) -> Optional[IlvPlan]:
+    """Window of one K3 launch, or None when no s-step window fits shared
+    memory (the wrapper then chains s single steps).  For s > 1 the halo
+    must be at most the tile, as for K1.  The register kernel serves
+    nd <= 16 at its fixed Lq when that leaves a tile; otherwise the
+    fallback takes the widest power-of-two tile that fits, preferring
+    room for two blocks per SM."""
     if nd > MAX_DIAGS or s > MAX_STEPS:
-        return 0
+        return None
     item = torch.empty((), dtype=dtype).element_size()
     hq = s * mc
+    min_tq = 1 if s == 1 else max(hq, 1)
+    ndm = next((k for k in sorted(REG_CPT[item]) if nd <= k), None)
+    if ndm is not None:
+        lq = ROW_LANES * REG_CPT[item][ndm]
+        smem = ilv_smem(nd, lq, mc, item, True)
+        if lq - 2 * hq >= min_tq and smem <= SMEM_MAX:
+            return IlvPlan(lq, lq - 2 * hq, hq, mc, True, smem)
     for budget in (SMEM_TARGET, SMEM_MAX):
         for tq in (1024, 512, 256, 128, 64, 32):
-            if (s == 1 or hq <= tq) and (nd + 2) * J * (tq + 2 * hq) * item <= budget:
-                return tq
-    return 0
+            smem = ilv_smem(nd, tq + 2 * hq, mc, item, False)
+            if tq >= min_tq and smem <= budget:
+                return IlvPlan(tq + 2 * hq, tq, hq, mc, False, smem)
+    return None
+
+
+def pick_tq(nd: int, mc: int, s: int, dtype: torch.dtype) -> int:
+    """q-columns owned by one K3 tile (:func:`ilv_plan`), or 0 when the
+    s-step window does not fit shared memory."""
+    plan = ilv_plan(nd, mc, s, dtype)
+    return plan.tq if plan else 0
 
 
 def dia_powers_ilv_ref(data_il, x_il, coefs, offsets, s, x_prev=None):
@@ -132,7 +179,7 @@ def dia_powers_ilv_ref(data_il, x_il, coefs, offsets, s, x_prev=None):
     return ilv_encode(V.T).T.contiguous(), ilv_encode(last)
 
 
-def _launch(data_il, x_il, x_prev, c, offsets, s, tq, V, last):
+def _launch(data_il, x_il, x_prev, c, offsets, s, plan: IlvPlan, V, last):
     n = x_il.shape[0]
     offs = (ctypes.c_int * len(offsets))(*offsets)
     fn = getattr(_lib(), "dia_powers_ilv_" + ("f32" if x_il.dtype == torch.float32 else "f64"))
@@ -140,7 +187,8 @@ def _launch(data_il, x_il, x_prev, c, offsets, s, tq, V, last):
         rc = fn(data_il.data_ptr(), offs, len(offsets), x_il.data_ptr(),
                 None if x_prev is None else x_prev.data_ptr(),
                 None if c is None else c.ctypes.data, V.data_ptr(), last.data_ptr(),
-                n, s, tq, s * max_carry(offsets), torch.cuda.current_stream().cuda_stream)
+                n, s, plan.lq, plan.tq, plan.hq, plan.g, int(plan.reg),
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dia_powers_ilv launch failed: CUDA error {rc}")
     LAUNCHES["dia_powers_ilv"] += 1
@@ -168,13 +216,13 @@ def dia_powers_ilv(data_il: torch.Tensor, x_il: torch.Tensor, coefs,
     mc = max_carry(offsets)
     V = torch.empty((s, n), dtype=x_il.dtype, device=x_il.device)
     last = torch.empty_like(x_il)
-    tq = pick_tq(len(offsets), mc, s, x_il.dtype)
-    if tq:
-        _launch(data_il, x_il, x_prev, c, offsets, s, tq, V, last)
+    plan = ilv_plan(len(offsets), mc, s, x_il.dtype)
+    if plan:
+        _launch(data_il, x_il, x_prev, c, offsets, s, plan, V, last)
         return V, last
     # The s-step window does not fit: chain s single steps through x_prev.
-    tq = pick_tq(len(offsets), mc, 1, x_il.dtype)
-    if tq == 0:
+    plan = ilv_plan(len(offsets), mc, 1, x_il.dtype)
+    if plan is None:
         raise ValueError(
             f"K3 window for {len(offsets)} diagonals of bandwidth "
             f"{max(abs(o) for o in offsets)} exceeds shared memory even at s=1; "
@@ -183,7 +231,7 @@ def dia_powers_ilv(data_il: torch.Tensor, x_il: torch.Tensor, coefs,
     prev, cur = x_prev, x_il
     for j in range(s):
         _launch(data_il, cur, prev, None if c is None else c[j:j + 1].copy(), offsets, 1,
-                tq, V[j], last)
+                plan, V[j], last)
         prev, cur = cur, V[j]
     last.copy_(V[s - 1])
     return V, last

@@ -4,7 +4,8 @@ Counterpart of ``ca_lanczos_tpu/ops/pell.py``'s ``_pell_step``.  The
 kernels are CUDA C++ in ``csrc/pell.cu`` (see its header for what each
 replaces and what bounds it):
 
-* K4 ``pell_step_unit`` — unit encoding (int8 lanes);
+* K4 ``pell_step_unit`` — unit encoding (int8 lanes); it reads only the
+  slots below ``A.slot_count`` of each 128-row group;
 * K5 ``pell_step_grouped`` — the grouped encodings, one kernel templated
   on the window geometry (``GROUPED_GEOM``: grouped NW=2, grouped4 NW=4).
 
@@ -40,7 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGS = {
-    f"pell_unit_{t}": ([_P, _P, _P, _P, _P, _P, _D, _D, _P, _I, _I, _I, _I, _I, _P], _I)
+    f"pell_unit_{t}": ([_P, _P, _P, _P, _P, _P, _P, _D, _D, _P, _I, _I, _I, _I, _I, _P], _I)
     for t in ("f32", "f64")
 }
 _SIGS.update({
@@ -67,8 +68,11 @@ def check_operands(A: PellMatrix, x: torch.Tensor, v_prev: Optional[torch.Tensor
             A.span_row.dtype != torch.int32):
         raise TypeError(f"PELL index planes: lidx {A.lidx.dtype} (want {want_idx}), "
                         f"cbase {A.cbase.dtype}, span_row {A.span_row.dtype} (want int32)")
+    if A.slot_count.dtype != torch.int32 or A.slot_count.shape != (A.ntiles, A.tile // LANES):
+        raise ValueError(f"slot_count must be ({A.ntiles}, {A.tile // LANES}) int32, got "
+                         f"{tuple(A.slot_count.shape)} {A.slot_count.dtype}")
     vecs = [v for v in (x, v_prev, out) if v is not None]
-    for t in (A.vals, A.lidx, A.cbase, A.span_row, *vecs):
+    for t in (A.vals, A.lidx, A.cbase, A.span_row, A.slot_count, *vecs):
         if t.device != A.vals.device:
             raise ValueError(f"mixed devices {A.vals.device} and {t.device}")
         if not t.is_contiguous():
@@ -111,6 +115,8 @@ def pell_step(A: PellMatrix, x: torch.Tensor, v_prev: Optional[torch.Tensor] = N
             out.data_ptr(), A.ntiles, A.tile, A.k_slots, A.sw // LANES, A.n_win]
     if grouped:
         args.append(GROUPED_GEOM[A.enc][0])
+    else:
+        args.insert(4, A.slot_count.data_ptr())
     with torch.cuda.device(x.device):
         fn = getattr(lib, ("pell_grouped_" if grouped else "pell_unit_") + suffix)
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)

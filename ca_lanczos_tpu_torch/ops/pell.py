@@ -32,7 +32,9 @@ tensors the kernels.
 The TPU kernels' x-span staging (double-buffered window DMA into VMEM,
 the rolled span table, the 8-row SMEM blocking of ``cbase``) is not part
 of this format's contract: the CUDA kernels gather x through L2 and
-decode ``span_row``/``cbase`` per element.
+decode ``span_row``/``cbase`` themselves.  ``slot_count`` is the port's
+own addition (the planes stay the JAX package's bits): K4 stops each
+128-row group at its last occupied slot.
 """
 
 from __future__ import annotations
@@ -61,6 +63,14 @@ class PellMatrix:
         (ntiles_pad8, B*KT*NW) int32 grouped window bases; the row count is
         padded to a multiple of 8 as in the JAX package.
     span_row : (ntiles, n_win) int32 window starts in 128-element chunks.
+    slot_count : (ntiles, tile/128) int32, per 128-row group one plus the
+        index of its last slot holding a nonzero value (0 for an empty
+        group): K4 walks only the slots below it.  Derived from ``vals``
+        (:func:`pell_slot_counts`) when not given; ``to`` and
+        ``dataclasses.replace`` carry it.  Over-counting is safe (the
+        extra slots are zeros); under-counting drops nonzeros, so a
+        ``replace`` that changes which values are nonzero must pass
+        ``slot_count=None`` to have it derived again.
     """
 
     vals: torch.Tensor
@@ -74,6 +84,12 @@ class PellMatrix:
     nnz_count: int
     n_win: int = 1
     enc: str = "unit"
+    slot_count: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.slot_count is None:
+            object.__setattr__(self, "slot_count", pell_slot_counts(
+                self.vals, self.span_row.shape[0], self.k_slots, self.tile))
 
     @property
     def ntiles(self) -> int:
@@ -107,7 +123,8 @@ class PellMatrix:
     def to(self, device) -> "PellMatrix":
         return dataclasses.replace(
             self, vals=self.vals.to(device), lidx=self.lidx.to(device),
-            cbase=self.cbase.to(device), span_row=self.span_row.to(device))
+            cbase=self.cbase.to(device), span_row=self.span_row.to(device),
+            slot_count=self.slot_count.to(device))
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """A @ x for x (n,) or (n, m): one step of the kernel per column
@@ -818,6 +835,17 @@ def _encode_grouped(indptr, indices, data, n, tile, win_lists, sw, dtype,
 # ---------------------------------------------------------------------------
 # The plain PyTorch step (plain version of K4/K5) and the public applies.
 # ---------------------------------------------------------------------------
+
+
+def pell_slot_counts(vals: torch.Tensor, ntiles: int, K: int, tile: int) -> torch.Tensor:
+    """(ntiles, tile/128) int32: per 128-row group, one plus the index of
+    the last slot with a nonzero value, 0 for an empty group.  The
+    encoders give a group's units the ordinals 0..u-1, so for the unit
+    encoding this is the group's unit count and every slot at or past it
+    is zero."""
+    occupied = (vals.reshape(ntiles, K, tile // LANES, LANES) != 0).any(dim=3)
+    ordinal = torch.arange(1, K + 1, dtype=torch.int32, device=vals.device)
+    return (occupied * ordinal[None, :, None]).amax(dim=1).to(torch.int32).contiguous()
 
 
 def _columns(A: PellMatrix) -> torch.Tensor:

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Profile the stages of the PyTorch/CUDA port's main paths on one GPU.
 
-Run from the root of a checkout:  ``python3 chip_profile.py [A] [B] [C]``
-(no argument: all three)
+Run from the root of a checkout:
+``python3 chip_profile.py [--root DIR] [A] [B] [C] [D]`` (no letter: all
+four).  ``--root DIR`` profiles the package of another tree unpacked at DIR
+(for instance the parent commit, as for chip_compare.py), so that two
+versions are measured in one call.
 
 It takes chip_smoke.py's configurations (A: the 11,010,048-row f32 flagship
 tridiagonal with prefer="dia", solved through K1; B: 4,194,304 rows with
 prefer="auto", solved on the interleaved route through K3; C: the
 11,010,048-row PELL oracle matrix with prefer="pell", encoding="auto",
-solved through K5), runs each stage of ``solve_auto`` on its own and
-prints, per configuration:
+solved through K5; D: the same with encoding="unit", solved through K4),
+runs each stage of ``solve_auto`` on its own and prints, per
+configuration:
 
 * route seconds (``make_operator``) and probe seconds (``recommend_solver``);
 * the fused solve's wall seconds unprofiled, twice (the first run pays the
@@ -19,7 +23,7 @@ prints, per configuration:
   ``1 - busy / unprofiled wall`` (the profiler slows the host, so its own
   wall is not used), the device ms per call of each hand-written kernel,
   and the top 15 operators and kernels by device time;
-* the polish: for A and C the host preparation of the f64 planes (offset
+* the polish: for A, C and D the host preparation of the f64 planes (offset
   scan, scipy DIA conversion) and the device polish, profiled like the
   solve; for B (a permuted route) the host polish's wall seconds.
 
@@ -27,6 +31,7 @@ Host-clock seconds end with the device synchronised.  Without a CUDA
 device it exits non-zero.
 """
 
+import os
 import sys
 import time
 
@@ -36,7 +41,7 @@ import chip_smoke
 
 DEVICE = "cuda"
 ROWS = 15  # rows of each profiler table
-KERNELS = ("dia_powers_fused_kernel", "dia_power_step_kernel", "ilv_powers_kernel",
+KERNELS = ("dia_powers_fused_kernel", "dia_power_step_kernel", "ilv_powers",
            "pell_unit_kernel", "pell_grouped_kernel")
 
 
@@ -135,6 +140,12 @@ def configuration(torch, label: str, a, prefer: str, **route_kw) -> None:
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--root"]:
+        root = os.path.abspath(args[1])
+        sys.path.insert(0, root)  # before the package is first imported
+        args = args[2:]
+        print(f"package from {root}")
     import torch
 
     if not torch.cuda.is_available():
@@ -142,7 +153,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     chip_smoke.phase0(torch)
-    which = set(sys.argv[1:]) or {"A", "B", "C"}
+    which = set(args) or {"A", "B", "C", "D"}
     if "A" in which:
         configuration(torch, "A", chip_smoke.flagship(11010048)[0], "dia")
     if "B" in which:
@@ -150,6 +161,9 @@ def main() -> int:
     if "C" in which:
         configuration(torch, "C", chip_smoke.pell_operator(chip_smoke.PELL_N)[0], "pell",
                       encoding="auto")
+    if "D" in which:
+        configuration(torch, "D", chip_smoke.pell_operator(chip_smoke.PELL_N)[0], "pell",
+                      encoding="unit")
     return 0
 
 

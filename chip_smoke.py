@@ -9,11 +9,14 @@ Phase 0  the card (nvidia-smi name and power limit), TF32 off; the CUDA
          build/.
 Phase 1  each kernel against its plain PyTorch version on the card, f32 and
          f64: max error relative to max|plain| per vector (bounds 1e-5 f32,
-         1e-12 f64; the sums run in another order), median CUDA-event times
-         over 20 reps after warm-up, the bound (bytes each input read once
+         1e-12 f64; the sums run in another order), CUDA-event times (the
+         median over 20 reps of a run of 10 back-to-back calls, over 10, so
+         that the wrappers' host work overlaps the card's), the bound (bytes each input read once
          and each output written once over 3.35 TB/s, or operations over the
-         peak rate, whichever is larger) and one torch.sparse CSR matvec of
-         the same matrix as the library yardstick.
+         peak rate, whichever is larger; for K4 the occupied slots only, the
+         full planes printed beside them) and one torch.sparse CSR matvec of
+         the same matrix as the library yardstick.  A kernel timed faster
+         than its bound fails the run.
          K1-K3 at bench.py's operator (4,194,304 rows x 9 diagonals, s=8,
          Newton coefficients from the port's own bootstrap); K1 and K3 do s
          steps, for which no single library call exists, so their
@@ -50,6 +53,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REPS = 20
+BATCH = 10  # calls per timed run
 BOUND = {"float32": 1e-5, "float64": 1e-12}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # outside the tensor cores
@@ -60,8 +64,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, reps: int = REPS, warm: int = 3) -> float:
-    """Median milliseconds of fn() over reps, CUDA events around each call."""
+def time_ms(torch, fn, reps: int = REPS, warm: int = 3, batch: int = BATCH) -> float:
+    """Device milliseconds per call of fn(): the median over reps of a run
+    of ``batch`` back-to-back calls between two CUDA events, over batch.
+    Within a run the host prepares the next call while the card runs the
+    last, so only the first call's host work shows (1/batch of it)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -70,10 +77,11 @@ def time_ms(torch, fn, reps: int = REPS, warm: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / batch)
     return float(np.median(ts))
 
 
@@ -150,6 +158,36 @@ def csr_library(torch, csr, dtype):
         torch.as_tensor(csr.data), size=csr.shape, dtype=dtype, device="cuda")
 
 
+def check_bound(kname: str, dt: str, ms: float, bms: float) -> None:
+    """A kernel cannot beat the least time its work takes: a reading above
+    100% of the bound means the bytes or the timing are wrong."""
+    if ms < bms:
+        raise AssertionError(f"{kname} [{dt}] reads {bms / ms:.0%} of its bound "
+                             f"({ms:.4f} ms < {bms:.4f} ms)")
+
+
+def pell_bytes(torch, A):
+    """(bytes a PELL step must move, bytes of the full planes + vectors).
+    Unit encoding: the occupied prefix of each group's slots of vals, lidx
+    and cbase, plus the per-group counts and span_row; grouped: every
+    plane.  Both add x (n_x) and v_prev read once, y (n_pad) written once.
+    The occupied prefix is taken from vals itself, so it counts what the
+    function needs whichever kernel runs."""
+    item = A.vals.element_size()
+    vectors = (A.n_x + 2 * A.n_pad) * item
+    full = sum(t.numel() * t.element_size()
+               for t in (A.vals, A.lidx, A.cbase, A.span_row)) + vectors
+    if A.enc != "unit":
+        return full, full
+    groups = A.ntiles * (A.tile // 128)
+    occ = (A.vals.reshape(A.ntiles, A.k_slots, A.tile // 128, 128) != 0).any(dim=3)
+    ordinal = torch.arange(1, A.k_slots + 1, device=occ.device)[None, :, None]
+    slots = int((occ * ordinal).amax(dim=1).sum())
+    need = (slots * (128 * (item + A.lidx.element_size()) + 4) + groups * 4
+            + A.span_row.numel() * 4 + vectors)
+    return need, full
+
+
 def check_row(torch, kname, dt, got, ref):
     err = rel_err(torch, got, ref)
     abs_err = float((got - ref).abs().max())
@@ -158,26 +196,27 @@ def check_row(torch, kname, dt, got, ref):
     return err, abs_err
 
 
-def phase1_dia(torch):
-    """K1-K3 vs plain versions; returns the f32 rows for the JSON line."""
-    import scipy.sparse as sp
-
-    from ca_lanczos_tpu_torch.config import Basis
-    from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_spmv
-    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
-    from ca_lanczos_tpu_torch.solvers.ca_lanczos import build_basis_matrix
-
-    n, s = 1 << 22, 8
-    offsets = tuple(range(-4, 5))
+def bench_operator():
+    """bench.py:123-134: 4,194,304 rows x 9 diagonals (-4..4), f32 planes,
+    a unit x and a random v_prev (numpy)."""
+    n, offsets = 1 << 22, tuple(range(-4, 5))
     nd = len(offsets)
-    rng = np.random.default_rng(0)  # bench.py:123-134
+    rng = np.random.default_rng(0)
     data = np.asarray(rng.standard_normal((nd, n)), np.float32) * 0.02
     data[nd // 2] += 0.8
     x = np.asarray(rng.standard_normal(n), np.float32)
     x /= np.linalg.norm(x)
     vprev = np.asarray(rng.standard_normal(n), np.float32)
-    nnz = sum(n - abs(o) for o in offsets)
-    # Newton coefficients as the main path makes them (2s-step bootstrap).
+    return data, offsets, x, vprev
+
+
+def newton_coefs(torch, data, offsets, x, s):
+    """(s, 2) Newton coefficients as the main path makes them (the port's
+    2s-step bootstrap, f64 on the card)."""
+    from ca_lanczos_tpu_torch.config import Basis
+    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+    from ca_lanczos_tpu_torch.solvers.ca_lanczos import build_basis_matrix
+
     A64 = DiaMatrix(data=torch.as_tensor(data, dtype=torch.float64, device="cuda"),
                     offsets=offsets)
     Bk = build_basis_matrix(A64, torch.as_tensor(x, dtype=torch.float64, device="cuda"),
@@ -185,9 +224,23 @@ def phase1_dia(torch):
     coefs = np.zeros((s, 2))
     coefs[:, 0] = np.diagonal(Bk)[:s]
     coefs[1:, 1] = np.diagonal(Bk, 1)[: s - 1]
+    return coefs
+
+
+def phase1_dia(torch):
+    """K1-K3 vs plain versions; returns the f32 rows for the JSON line."""
+    import scipy.sparse as sp
+
+    from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_spmv
+    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+
+    s = 8
+    data, offsets, x, vprev = bench_operator()
+    nd, n = data.shape
+    nnz = sum(n - abs(o) for o in offsets)
+    coefs = newton_coefs(torch, data, offsets, x, s)
     log(f"newton coefs: shifts {np.round(coefs[:, 0], 4).tolist()} "
         f"subs {np.round(coefs[:, 1], 6).tolist()}")
-    del A64
     # the library yardstick: one CSR matvec of the same matrix, f32
     rows = [np.arange(max(0, -o), min(n, n - o)) for o in offsets]
     csr = sp.csr_matrix((np.concatenate([data[d, r] for d, r in enumerate(rows)]),
@@ -247,6 +300,7 @@ def phase1_dia(torch):
                 f"kernel {ms:.4f} ms ({nnz * steps / (ms * 1e-3) / 1e9:.1f} Gnnz/s) "
                 f"plain {plain_ms:.4f} ms bound {bms:.4f} ms ({by}; {bms / ms:.0%} of it) "
                 f"speedup over plain {plain_ms / ms:.2f}x")
+            check_bound(kname, name, ms, bms)
             if dt == torch.float32:
                 out.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
                                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -316,19 +370,16 @@ def phase1_pell(torch, a32):
             err, abs_err = check_row(torch, f"{kname}/{enc}", name, kern(), plain())
             ms = time_ms(torch, kern)
             plain_ms = time_ms(torch, plain)
-            item = A.vals.element_size()
-            plane_bytes = sum(t.numel() * t.element_size()
-                              for t in (A.vals, A.lidx, A.cbase, A.span_row))
-            # planes, x and v_prev read once, y written once; 2 flops per
-            # nonzero and 4 per row for the shifts
-            nbytes = plane_bytes + (A.n_x + 2 * A.n_pad) * item
+            nbytes, full = pell_bytes(torch, A)
             bms, by = bound_ms(nbytes, 2 * a32.nnz + 4 * A.n_pad, name)
             log(f"kernel {kname} [{enc}, {name}] n={n} K={A.k_slots}: rel_err={err:.3e} "
                 f"(bound {BOUND[name]:.0e}) abs_err={abs_err:.3e} kernel {ms:.4f} ms "
                 f"({a32.nnz / (ms * 1e-3) / 1e9:.1f} Gnnz/s, "
                 f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s) plain {plain_ms:.4f} ms "
-                f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB; {bms / ms:.0%} of it) "
+                f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB; {bms / ms:.0%} of it; "
+                f"full planes {full / 1e6:.1f} MB, {bound_ms(full, 0, name)[0]:.4f} ms) "
                 f"library {csr_ms:.4f} ms")
+            check_bound(f"{kname}/{enc}", name, ms, bms)
             if dt == torch.float32 and enc != "grouped4":
                 out.append(dict(name=kname, route="cuda",
                                 source="ca_lanczos_tpu_torch/csrc/pell.cu",

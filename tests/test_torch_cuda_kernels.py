@@ -9,6 +9,8 @@ so on a machine without it run
 Tolerances: f32 1e-5 and f64 1e-12 relative to max|plain| per step (the
 sums run in another order)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -162,3 +164,85 @@ def test_spmv_of_a_pell_vector_is_one_launch(cuda):
         cuda_pell.pell_step(A, torch.zeros(A.n_x, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         cuda_pell.pell_step(A, x[:100].contiguous())
+
+
+def _sparse_groups(chunks, n=6000, seed=8):
+    """Whole empty 128-row groups, empty rows, and one row touching
+    ``chunks`` chunks alone in its group, so that group fills K = chunks
+    (past 32 a group spans two of K4's 32-slot items) while the others use
+    a few slots."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(np.arange(1024, n), 600)  # rows 0..1023 stay empty
+    rows = rows[rows // 128 != 2000 // 128]
+    cols = np.clip(rows + rng.integers(-40, 41, rows.shape), 0, n - 1)
+    a = sp.csr_matrix((rng.standard_normal(rows.shape), (rows, cols)), (n, n)).tolil()
+    for c in range(chunks):
+        a[2000, 128 * c + 5] = 1.0 + c
+    a = sp.csr_matrix(a)
+    a.sum_duplicates()
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["sparse_groups", "two_items", "band"])
+def test_k4_skips_only_padding_slots(cuda, case, dtype):
+    chunks = {"sparse_groups": 24, "two_items": 40}.get(case)
+    a = _pell_matrix(20_000 + 11, seed=9) if chunks is None else _sparse_groups(chunks)
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    A = pell.PellMatrix.from_scipy(a.astype(npdt), tile=512, encoding="unit", device=cuda)
+    counts = A.slot_count.cpu()
+    if chunks is not None:
+        assert (counts == 0).any() and int(counts.max()) == A.k_slots == chunks
+    n = a.shape[0]
+    rng = np.random.default_rng(10)
+    x = torch.zeros(A.n_x, dtype=dtype, device=cuda)
+    vp = torch.zeros_like(x)
+    x[:n] = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    vp[:n] = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    for v_prev, d, sb in ((vp, 0.7, -0.3), (None, -0.2, 0.0)):
+        before = cuda_pell.LAUNCHES["pell_step_unit"]
+        y = cuda_pell.pell_step(A, x, v_prev, d, sb)
+        assert cuda_pell.LAUNCHES["pell_step_unit"] == before + 1
+        assert _rel(y, pell.pell_step_ref(A, x, v_prev, d, sb)) <= BOUND[dtype]
+    # a count that covers every slot reads the zeros too, with the same result
+    full = dataclasses.replace(A, slot_count=torch.full_like(A.slot_count, A.k_slots))
+    torch.testing.assert_close(cuda_pell.pell_step(full, x), cuda_pell.pell_step(A, x),
+                               rtol=BOUND[dtype], atol=BOUND[dtype] * float(x.abs().max()))
+    torch.cuda.synchronize()
+
+
+# (offsets, nq, s, with coefficients, with x_prev, expected route): the
+# register kernel at 3/9/16 diagonals, carry 2, nq below and not a multiple
+# of the tile, s = 1 and 8; the shared-memory fallback past 16 diagonals;
+# the chained single steps when no s-step window fits.
+K3_CASES = {
+    "carry2": ((-16, -9, -1, 0, 1, 9, 16), 1000, 8, True, False, "reg"),
+    "nq_below_tq": (tuple(range(-4, 5)), 100, 8, True, True, "reg"),
+    "one_step": ((-2, 0, 3), 5003, 1, True, True, "reg"),
+    "monomial": ((-1, 0, 1), 3001, 8, False, False, "reg"),
+    "x_prev_16": (tuple(range(-8, 8)), 10_007, 8, True, True, "reg"),
+    "many_diagonals": (tuple(range(-10, 11)), 4099, 8, True, True, "smem"),
+    "chained": ((-900, -1, 0, 1, 900), 8192, 4, True, True, "chain"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_matches_plain(cuda, case, dtype):
+    offsets, nq, s, with_coefs, with_prev, route = K3_CASES[case]
+    n = 8 * nq
+    plan = cuda_ilv.ilv_plan(len(offsets), cuda_ilv.max_carry(offsets), s, dtype)
+    assert route == ("chain" if plan is None else "reg" if plan.reg else "smem")
+    D, X = _operands(n, offsets, dtype, cuda, seed=11)
+    P = X.flip(0).contiguous() if with_prev else None
+    c = (np.stack([np.linspace(-0.3, 0.3, s), np.r_[0.0, np.full(s - 1, 0.01)]], 1)
+         if with_coefs else None)
+    D_il = cuda_ilv.IlvDiaMatrix.from_dia(DiaMatrix(data=D, offsets=offsets)).data_il
+    X_il = cuda_ilv.ilv_encode(X).contiguous()
+    P_il = None if P is None else cuda_ilv.ilv_encode(P).contiguous()
+    before = cuda_ilv.LAUNCHES["dia_powers_ilv"]
+    V, last = cuda_ilv.dia_powers_ilv(D_il, X_il, c, offsets, s, P_il)
+    assert cuda_ilv.LAUNCHES["dia_powers_ilv"] == before + (s if route == "chain" else 1)
+    Vr, lr = cuda_ilv.dia_powers_ilv_ref(D_il, X_il, c, offsets, s, P_il)
+    assert _rel(V, Vr) <= BOUND[dtype] and _rel(last, lr) <= BOUND[dtype]
+    torch.cuda.synchronize()

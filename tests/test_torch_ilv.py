@@ -143,3 +143,46 @@ def test_block_product_needs_the_normal_layout_planes():
         operator_from_numpy(_op(N, np.float32, seed=6), device="cpu"), keep_dia=False)
     with pytest.raises(ValueError, match="keep_dia=True"):
         A.matvec(torch.zeros((N, 2)))
+
+
+def _pick_tq_before(nd, mc, s, item):
+    """The tile rule K3 had before its register kernel (one tile per block,
+    the planes and both vectors staged): the cases it fitted must still fit."""
+    hq = s * mc
+    for budget in (cuda_ilv.SMEM_TARGET, cuda_ilv.SMEM_MAX):
+        for tq in (1024, 512, 256, 128, 64, 32):
+            if (s == 1 or hq <= tq) and (nd + 2) * 8 * (tq + 2 * hq) * item <= budget:
+                return tq
+    return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ilv_plan_fits_and_keeps_the_halo_inside_the_tile(dtype):
+    item = torch.empty((), dtype=dtype).element_size()
+    for nd in (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 24, 33, 64, 128):
+        for mc in (0, 1, 2, 3, 16, 64, 128, 1024):
+            for s in (1, 2, 4, 8):
+                plan = cuda_ilv.ilv_plan(nd, mc, s, dtype)
+                if _pick_tq_before(nd, mc, s, item):
+                    assert plan is not None, (nd, mc, s)
+                if plan is None:
+                    assert cuda_ilv.pick_tq(nd, mc, s, dtype) == 0
+                    continue
+                assert (plan.hq, plan.g) == (s * mc, mc)
+                assert plan.lq == plan.tq + 2 * plan.hq and plan.tq >= 1
+                if s > 1:
+                    assert plan.hq <= plan.tq
+                assert plan.smem == cuda_ilv.ilv_smem(nd, plan.lq, mc, item, plan.reg)
+                assert plan.smem <= cuda_ilv.SMEM_MAX
+                if plan.reg:
+                    ndm = min(k for k in cuda_ilv.REG_CPT[item] if nd <= k)
+                    assert plan.lq == cuda_ilv.ROW_LANES * cuda_ilv.REG_CPT[item][ndm]
+                else:
+                    assert plan.tq in (1024, 512, 256, 128, 64, 32)
+    # the main paths' shapes (3 and 9 diagonals, s = 8) take the register
+    # kernel; a halo wider than any tile still chains single steps
+    for nd in (3, 9):
+        assert cuda_ilv.ilv_plan(nd, 1, 8, dtype).reg
+    assert cuda_ilv.ilv_plan(17, 1, 8, dtype).reg is False
+    assert cuda_ilv.ilv_plan(5, 113, 4, dtype) is None
+    assert cuda_ilv.ilv_plan(5, 113, 1, dtype) is not None

@@ -9,6 +9,8 @@ the plain step against JAX's Pallas kernels in interpret mode agrees to
 sum the K slots in another order; products against scipy's f64 CSR are
 1e-12 relative on f64 planes."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -270,3 +272,77 @@ def test_save_load_roundtrip_and_jax_files(tmp_path):
             # and the JAX package reads the port's file
             Bj, _ = jformats.load_operator_npz(str(tmp_path / "pell_torch.npz"))
             _same(Bj, At)
+
+
+def _empty_groups():
+    """Empty rows and whole empty 128-row groups, and one group whose row
+    700 touches all 16 chunks (16 units: the group fills K = 16)."""
+    n = 2048
+    a = sp.lil_matrix((n, n))
+    for i, j, v in ((0, 0, 1.0), (299, 299, 2.0), (599, 5, 3.0), (1900, 1901, -1.0)):
+        a[i, j] = v
+    for c in range(16):
+        a[700, 128 * c + 3] = 1.0 + c
+    return sp.csr_matrix(a)
+
+
+def _unit_counts(a, tile):
+    """Per 128-row group, the unit encoder's unit count from the CSR alone:
+    a unit is a (chunk, layer) pair, so a group holds, for every chunk its
+    rows touch, as many units as one of its rows has entries there."""
+    a = sp.csr_matrix(a)
+    assert (a.data != 0).all()
+    n = a.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(a.indptr))
+    nch = -(-n // pell.LANES)
+    pairs, per_row = np.unique(rows.astype(np.int64) * nch + a.indices // pell.LANES,
+                               return_counts=True)
+    gkey = pairs // nch // pell.LANES * nch + pairs % nch  # (group, chunk)
+    groups_chunks, inv = np.unique(gkey, return_inverse=True)
+    layers = np.zeros(len(groups_chunks), np.int64)
+    np.maximum.at(layers, inv, per_row)
+    ntiles = -(-n // tile)
+    out = np.zeros(ntiles * (tile // pell.LANES), np.int64)
+    np.add.at(out, groups_chunks // nch, layers)
+    return out.reshape(ntiles, tile // pell.LANES)
+
+
+def _unit_operator(path, a, kw, tmp_path):
+    if path in ("numpy", "native"):
+        return pell.PellMatrix.from_scipy(a, encoding="unit", device="cpu",
+                                          native=path == "native", **kw)
+    if path == "jax_file":
+        J = jpell.PellMatrix.from_scipy(a, encoding="unit", device=False, native=False, **kw)
+        jformats.save_operator(str(tmp_path / "unit.npz"), J)
+        return formats.load_operator_npz(str(tmp_path / "unit.npz"), device="cpu")[0]
+    M = pell.PellMatrix.from_scipy(a, encoding="unit", device="cpu", native=False, **kw)
+    return formats.negate_operator(M) if path == "negate" else M.to("cpu")
+
+
+@pytest.mark.parametrize("path", ["numpy", "native", "jax_file", "negate", "to"])
+@pytest.mark.parametrize("name", sorted(PATTERNS) + ["empty_groups"])
+def test_slot_count_is_the_unit_count(name, path, tmp_path):
+    # the property that lets K4 skip the padding slots exactly
+    a, kw = _csr(name) if name in PATTERNS else (_empty_groups(), dict(tile=512))
+    M = _unit_operator(path, a, kw, tmp_path)
+    assert M.enc == "unit" and M.slot_count.dtype == torch.int32
+    want = _unit_counts(a, M.tile)
+    np.testing.assert_array_equal(M.slot_count.numpy(), want)
+    B = M.tile // pell.LANES
+    occupied = M.vals.reshape(M.ntiles, M.k_slots, B, pell.LANES).abs().amax(dim=3)
+    past = torch.arange(M.k_slots)[None, :, None] >= M.slot_count[:, None, :]
+    assert not bool(occupied[past].any())
+    if name == "empty_groups":
+        assert (want == 0).any() and want.max() == M.k_slots == 16
+
+
+def test_slot_count_survives_a_dtype_replace():
+    a, kw = _csr("banded")
+    M = pell.PellMatrix.from_scipy(a.astype(np.float32), encoding="unit", device="cpu", **kw)
+    M64 = dataclasses.replace(M, vals=M.vals.to(torch.float64))
+    assert M64.slot_count is M.slot_count
+    torch.testing.assert_close(M64.slot_count, pell.pell_slot_counts(
+        M64.vals, M64.ntiles, M64.k_slots, M64.tile), rtol=0, atol=0)
+    x = torch.as_tensor(_x(a.shape[0], 11))
+    np.testing.assert_allclose(M64.matvec(x).numpy(), a.astype(np.float32).astype(np.float64) @
+                               x.numpy(), rtol=1e-12, atol=1e-12)
