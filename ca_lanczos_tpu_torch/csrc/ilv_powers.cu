@@ -57,30 +57,6 @@ namespace {
 constexpr int THREADS = 512;  // 8 interleaved rows x 64 lanes
 constexpr int ROW_LANES = 64;
 
-// One element global -> shared without passing through registers; src-size
-// 0 writes a zero (PTX cp.async zero-fill).
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
-               "n"(sizeof(T)), "r"(valid ? (int)sizeof(T) : 0)
-               : "memory");
-}
-
-// 16 bytes global -> shared (L1 bypassed); src-size 0 writes zeros.
-__device__ __forceinline__ void copy_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void copy_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Stage window columns [q0, q0 + Lq) of the 8 rows of one interleaved
 // vector or plane `src` into dst[r*stride + c]: zero outside [0, nq) and
 // for a null src.  Thread (r, l) copies columns l, l + 64, ... of row r,
@@ -315,16 +291,9 @@ int ilv(const T* data, const int* offsets, int nd, const T* x, const T* xprev,
   const int ndm = nd <= 3 ? 3 : nd <= 5 ? 5 : nd <= 9 ? 9 : nd <= 16 ? 16 : 0;
   const RegKernel<T> kernel = lq % ROW_LANES ? nullptr : reg_kernel<T>(ndm, lq / ROW_LANES);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, bytes);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int blocks = (int)(ntiles < (long long)per_sm * sms ? ntiles : (long long)per_sm * sms);
+  int blocks = 0;
+  const int e = persistent_blocks(kernel, THREADS, bytes, ntiles, &blocks);
+  if (e != 0) return e;
   kernel<<<blocks, THREADS, bytes, (cudaStream_t)stream>>>(data, o, nd, x, xprev, c,
                                                            coefs != nullptr ? 1 : 0, V, last,
                                                            n, s, tq, hq, g, (int)ntiles, wide);

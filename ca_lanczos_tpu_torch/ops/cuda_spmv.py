@@ -1,5 +1,5 @@
 """Banded (DIA) matrix-powers kernels K1 and K2: wrappers, plain versions,
-tile picker.
+K1 planner.
 
 Counterpart of ``ca_lanczos_tpu/ops/pallas_spmv.py``.  The kernels are
 CUDA C++ in ``csrc/dia_powers.cu`` (see its header for what each replaces
@@ -7,6 +7,8 @@ and what bounds it):
 
 * K1 ``dia_powers_fused`` — s steps of the three-term recurrence with the
   matrix read once per s steps; plain version ``dia_powers_fused_ref``.
+  :func:`k1_plan` picks its kernel: the register kernel for distinct
+  offsets inside +-8, else the shared-memory fallback, else K2 steps.
 * K2 ``dia_power_step`` — one step ``y = A x - c0 x - c1 v_prev``; plain
   version ``dia_power_step_ref``.  It is K1's fallback when K1's halo does
   not fit shared memory, and, registered in ``ops.spmv.CUDA_MATVEC``, the
@@ -21,7 +23,7 @@ numbers (``(s, 2)`` rows ``[shift, sub]``), passed to the kernel by value.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +36,15 @@ MAX_STEPS = 64  # DIA_MAX_STEPS
 SMEM_TARGET = 96 * 1024  # two resident blocks per SM
 SMEM_MAX = 227 * 1024  # per-block dynamic shared memory on sm_90
 
-LAUNCHES = {"dia_powers_fused": 0, "dia_power_step": 0}
+# dia_powers_fused counts every K1 launch, dia_powers_reg / _smem by kernel
+LAUNCHES = {"dia_powers_fused": 0, "dia_powers_reg": 0, "dia_powers_smem": 0,
+            "dia_power_step": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGS = {
-    f"dia_powers_fused_{t}": ([_P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _P], _I)
+    f"dia_powers_fused_{t}": ([_P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P], _I)
     for t in ("f32", "f64")
 }
 _SIGS.update({
@@ -144,26 +148,86 @@ def dia_power_step_ref(data, x, v_prev, coefs, offsets):
 
 
 # ---------------------------------------------------------------------------
-# Tile picker and wrappers.
+# K1 planner and wrappers.
 # ---------------------------------------------------------------------------
 
+K1_THREADS = 256  # K1_THREADS in csrc/dia_powers.cu
+# The register kernels csrc/dia_powers.cu instantiates are keyed by band
+# capacity BW (offsets inside +-BW); per element size, the quads of 4 rows
+# each thread owns (window = 4 * K1_THREADS * quads rows), chosen so its
+# 4 * (2*BW + 1) coefficients per quad stay in registers.
+K1_REG_QUADS = {4: {1: 2, 2: 2, 4: 1, 8: 1}, 8: {1: 1, 2: 1, 4: 1, 8: 1}}
 
-def fused_tile(nd: int, wmax: int, s: int, dtype: torch.dtype) -> int:
-    """Rows owned by one K1 block, or 0 when the s-step halo does not fit
-    (the caller then runs s launches of K2).  Shared memory holds the
-    matrix tile and two vector windows, (nd + 2) * (tile + 2*s*wmax)
-    elements; prefer a tile that leaves room for two blocks per SM, and
-    require the halo to be at most the tile (beyond that K2's per-step
-    stream is cheaper than the redundant halo work)."""
-    if nd > MAX_DIAGS or s > MAX_STEPS:
-        return 0
+
+class K1Plan(NamedTuple):
+    """One K1 launch: ``variant`` "reg" (register kernel), "smem" (the
+    shared-memory fallback) or "steps" (no s-step window fits: s launches
+    of K2); ``tile`` rows owned per tile with ``halo`` rows a side;
+    ``quads`` per thread and band capacity ``bw`` of the register kernel;
+    ``smem`` bytes of shared memory per block."""
+
+    variant: str
+    tile: int
+    halo: int
+    quads: int
+    bw: int
+    smem: int
+
+
+STEPS_PLAN = K1Plan("steps", 0, 0, 0, 0, 0)
+
+
+def k1_smem(nd: int, window: int, bw: int, item: int) -> int:
+    """Shared memory of a K1 block (csrc/dia_powers.cu ``fused``).  The
+    register kernel (``bw`` > 0) stages the next tile's planes and x and
+    keeps two step buffers with a guard of whole quads a side; the fallback
+    holds the planes and two vectors."""
+    if bw:
+        guard = 4 * ((bw + 3) // 4)
+        return ((nd + 1) * window + 2 * (window + 2 * guard)) * item
+    return (nd + 2) * window * item
+
+
+def k1_plan(nd: int, wmax: int, s: int, dtype: torch.dtype, distinct: bool = True) -> K1Plan:
+    """How K1 runs ``s`` steps of ``nd`` diagonals at most ``wmax`` from the
+    main one.  The register kernel takes distinct offsets inside the widest
+    band it is built for, with its halo rounded up to a quad and at most
+    the tile for s > 1; otherwise the fallback takes the widest tile of
+    4096..256 rows whose halo ``s*max(wmax, 1)`` is at most the tile and
+    that fits shared memory, preferring room for two blocks per SM (the
+    first port's rule, so every shape it ran still runs); otherwise K2."""
+    if not 0 < nd <= MAX_DIAGS or not 0 < s <= MAX_STEPS:
+        return STEPS_PLAN
     item = torch.empty((), dtype=dtype).element_size()
+    quads = K1_REG_QUADS[item]
+    bw = next((b for b in sorted(quads) if b >= wmax), None)
+    if distinct and bw is not None:
+        window = 4 * K1_THREADS * quads[bw]
+        halo = -(-s * wmax // 4) * 4
+        tile = window - 2 * halo
+        smem = k1_smem(nd, window, bw, item)
+        if tile >= max(4, halo if s > 1 else 0) and smem <= SMEM_MAX:
+            return K1Plan("reg", tile, halo, quads[bw], bw, smem)
     halo = s * max(wmax, 1)
     for budget in (SMEM_TARGET, SMEM_MAX):
         for t in (4096, 2048, 1024, 512, 256):
-            if halo <= t and (nd + 2) * (t + 2 * halo) * item <= budget:
-                return t
-    return 0
+            smem = k1_smem(nd, t + 2 * halo, 0, item)
+            if halo <= t and smem <= budget:
+                return K1Plan("smem", t, halo, 0, 0, smem)
+    return STEPS_PLAN
+
+
+def k1_plan_for(offsets: Sequence[int], s: int, dtype: torch.dtype) -> K1Plan:
+    """:func:`k1_plan` for these offsets (a repeated one rules out the
+    register kernel)."""
+    return k1_plan(len(offsets), max(abs(o) for o in offsets), s, dtype,
+                   distinct=len(set(offsets)) == len(offsets))
+
+
+def fused_tile(nd: int, wmax: int, s: int, dtype: torch.dtype) -> int:
+    """Rows owned by one K1 tile (:func:`k1_plan`), or 0 when no s-step
+    window fits (the caller then runs s launches of K2)."""
+    return k1_plan(nd, wmax, s, dtype).tile
 
 
 def dia_powers_fused(data: torch.Tensor, x: torch.Tensor, coefs, offsets: Sequence[int],
@@ -179,10 +243,10 @@ def dia_powers_fused(data: torch.Tensor, x: torch.Tensor, coefs, offsets: Sequen
     c = host_coefs(coefs, s)
     if x.device.type == "cpu":
         return dia_powers_fused_ref(data, x, c, offsets, s)
-    wmax = max(abs(o) for o in offsets)
-    tile = fused_tile(len(offsets), wmax, s, x.dtype)
-    if tile == 0:
-        raise ValueError(f"no K1 tile fits s={s}, bandwidth {wmax}; use dia_power_step")
+    plan = k1_plan_for(offsets, s, x.dtype)
+    if plan.variant == "steps":
+        raise ValueError(f"no K1 window fits s={s}, bandwidth "
+                         f"{max(abs(o) for o in offsets)}; use dia_power_step")
     V = torch.empty((s, n), dtype=x.dtype, device=x.device)
     last = torch.empty_like(x)
     offs = (ctypes.c_int * len(offsets))(*offsets)
@@ -190,9 +254,11 @@ def dia_powers_fused(data: torch.Tensor, x: torch.Tensor, coefs, offsets: Sequen
     with torch.cuda.device(x.device):
         rc = fn(data.data_ptr(), offs, len(offsets), x.data_ptr(),
                 None if c is None else c.ctypes.data, V.data_ptr(), last.data_ptr(),
-                n, s, tile, s * max(wmax, 1), torch.cuda.current_stream().cuda_stream)
+                n, s, plan.tile, plan.halo, plan.bw, plan.quads,
+                torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "dia_powers_fused")
     LAUNCHES["dia_powers_fused"] += 1
+    LAUNCHES["dia_powers_" + plan.variant] += 1
     return V, last
 
 
@@ -240,9 +306,9 @@ def matrix_powers_dia_steps(A, q: torch.Tensor, s: int, diag=None, sub=None) -> 
 
 
 def matrix_powers_dia_fused(A, q: torch.Tensor, s: int, diag=None, sub=None) -> torch.Tensor:
-    """Fused-s matrix powers (n, s+1) through K1, or K2 when no K1 tile
+    """Fused-s matrix powers (n, s+1) through K1, or K2 when no K1 window
     fits (mirror of the TPU ``fused_tile`` returning 0)."""
-    if fused_tile(len(A.offsets), max(abs(o) for o in A.offsets), s, q.dtype) == 0:
+    if k1_plan_for(tuple(A.offsets), s, q.dtype).variant == "steps":
         return matrix_powers_dia_steps(A, q, s, diag, sub)
     coefs = None
     if diag is not None or sub is not None:

@@ -41,8 +41,10 @@ import chip_smoke
 
 DEVICE = "cuda"
 ROWS = 15  # rows of each profiler table
-KERNELS = ("dia_powers_fused_kernel", "dia_power_step_kernel", "ilv_powers",
-           "pell_unit_kernel", "pell_grouped_kernel")
+# K1's kernels (dia_powers_fused_kernel: K1 of trees before its register
+# kernel, for --root), K2, K3, K4, K5
+KERNELS = ("dia_powers_reg", "dia_powers_smem", "dia_powers_fused_kernel",
+           "dia_power_step_kernel", "ilv_powers", "pell_unit_kernel", "pell_grouped_kernel")
 
 
 def timed(torch, fn):

@@ -18,9 +18,11 @@ Phase 1  each kernel against its plain PyTorch version on the card, f32 and
          the same matrix as the library yardstick.  A kernel timed faster
          than its bound fails the run.
          K1-K3 at bench.py's operator (4,194,304 rows x 9 diagonals, s=8,
-         Newton coefficients from the port's own bootstrap); K1 and K3 do s
-         steps, for which no single library call exists, so their
-         library_ms is null and s x the CSR time is printed beside them.
+         Newton coefficients from the port's own bootstrap), and K1 again
+         at main path A's (11,010,048 rows, tridiagonal, s=8; printed, not
+         in the JSON line); K1 and K3 do s steps, for which no single
+         library call exists, so their library_ms is null and s x the CSR
+         time is printed beside them.
          K4 and K5 on the planes of exp/pell_10m_e2e.py's operator
          (11,010,048 rows, encoded "unit", "auto" (it must pick grouped)
          and "grouped4").
@@ -210,6 +212,23 @@ def bench_operator():
     return data, offsets, x, vprev
 
 
+def path_a_operator():
+    """Main path A's matrix as DIA planes (exp/flagship_10m.py:47-53 at
+    11,010,048 rows: the planted-top tridiagonal, the same numbers as
+    :func:`flagship`), f32, and a random unit x (numpy)."""
+    n = 11010048
+    d = np.linspace(1.0, 90.0, n)
+    d[-10:] = np.linspace(95.0, 100.0, 10)
+    off = np.random.default_rng(0).standard_normal(n) * 1e-3
+    data = np.zeros((3, n), np.float32)
+    data[0, 1:] = off[:-1]  # A[i, i-1]
+    data[1] = d
+    data[2, :-1] = off[:-1]  # A[i, i+1]
+    x = np.asarray(np.random.default_rng(1).standard_normal(n), np.float32)
+    x /= np.linalg.norm(x)
+    return data, (-1, 0, 1), x
+
+
 def newton_coefs(torch, data, offsets, x, s):
     """(s, 2) Newton coefficients as the main path makes them (the port's
     2s-step bootstrap, f64 on the card)."""
@@ -283,31 +302,56 @@ def phase1_dia(torch):
              lambda: cuda_ilv.dia_powers_ilv_ref(D_il, X_il, coefs, offsets, s)),
         ]
         for kname, src, replaces, steps, nbytes, flops, lib_ms, kern, plain in cases:
-            got, ref = kern(), plain()
-            torch.cuda.synchronize()
-            if isinstance(got, tuple):
-                e0, a0 = check_row(torch, kname, name, got[0], ref[0])
-                e1, a1 = check_row(torch, kname, name, got[1], ref[1])
-                err, abs_err = max(e0, e1), max(a0, a1)
-            else:
-                err, abs_err = check_row(torch, kname, name, got, ref)
-            del got, ref
-            ms = time_ms(torch, kern)
-            plain_ms = time_ms(torch, plain)
-            bms, by = bound_ms(nbytes, flops, name)
-            log(f"kernel {kname} [{name}] n={n} nd={nd} s={steps}: rel_err={err:.3e} "
-                f"(bound {BOUND[name]:.0e}) abs_err={abs_err:.3e} "
-                f"kernel {ms:.4f} ms ({nnz * steps / (ms * 1e-3) / 1e9:.1f} Gnnz/s) "
-                f"plain {plain_ms:.4f} ms bound {bms:.4f} ms ({by}; {bms / ms:.0%} of it) "
-                f"speedup over plain {plain_ms / ms:.2f}x")
-            check_bound(kname, name, ms, bms)
+            abs_err, ms, plain_ms, bms, by = dia_row(torch, kname, name, n, nd, nnz, steps,
+                                                     nbytes, flops, kern, plain)
             if dt == torch.float32:
                 out.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
                                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                 bound_by=by, library_ms=lib_ms))
         del D, X, P, D_il, X_il
     torch.cuda.empty_cache()
+
+    # K1 at main path A's shape too (printed only: its JSON row is bench.py's)
+    data, offsets, x = path_a_operator()
+    nd, n = data.shape
+    nnz = sum(n - abs(o) for o in offsets)
+    coefs = newton_coefs(torch, data, offsets, x, s)
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        item = torch.empty((), dtype=dt).element_size()
+        D = torch.as_tensor(data, dtype=dt, device="cuda")
+        X = torch.as_tensor(x, dtype=dt, device="cuda")
+        dia_row(torch, "dia_powers_fused (path A)", name, n, nd, nnz, s,
+                (nd + 1 + s + 1) * n * item, s * (2 * nnz + 4 * n),
+                lambda: cuda_spmv.dia_powers_fused(D, X, coefs, offsets, s),
+                lambda: cuda_spmv.dia_powers_fused_ref(D, X, coefs, offsets, s))
+        del D, X
+    torch.cuda.empty_cache()
     return out
+
+
+def dia_row(torch, kname, name, n, nd, nnz, steps, nbytes, flops, kern, plain):
+    """Check one DIA kernel against its plain version, time both and log
+    the line; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    if isinstance(got, tuple):
+        e0, a0 = check_row(torch, kname, name, got[0], ref[0])
+        e1, a1 = check_row(torch, kname, name, got[1], ref[1])
+        err, abs_err = max(e0, e1), max(a0, a1)
+    else:
+        err, abs_err = check_row(torch, kname, name, got, ref)
+    del got, ref
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain)
+    bms, by = bound_ms(nbytes, flops, name)
+    log(f"kernel {kname} [{name}] n={n} nd={nd} s={steps}: rel_err={err:.3e} "
+        f"(bound {BOUND[name]:.0e}) abs_err={abs_err:.3e} "
+        f"kernel {ms:.4f} ms ({nnz * steps / (ms * 1e-3) / 1e9:.1f} Gnnz/s) "
+        f"plain {plain_ms:.4f} ms bound {bms:.4f} ms ({by}; {bms / ms:.0%} of it) "
+        f"speedup over plain {plain_ms / ms:.2f}x")
+    check_bound(kname, name, ms, bms)
+    return abs_err, ms, plain_ms, bms, by
 
 
 def pell_operator(n: int, bw: int = 8, k: int = 4, seed: int = 0):

@@ -246,3 +246,42 @@ def test_k3_matches_plain(cuda, case, dtype):
     Vr, lr = cuda_ilv.dia_powers_ilv_ref(D_il, X_il, c, offsets, s, P_il)
     assert _rel(V, Vr) <= BOUND[dtype] and _rel(last, lr) <= BOUND[dtype]
     torch.cuda.synchronize()
+
+
+# (offsets, n, s, with coefficients, expected kernel): the register kernel
+# at 3/9/16/17 diagonals with n % 4 != 0, n below one tile, a ragged last
+# tile, s = 1 and 8, monomial steps and asymmetric offsets; the
+# shared-memory fallback for a wider band, more diagonals and a repeated
+# offset.
+K1_CASES = {
+    "tri_ragged_tile": ((-1, 0, 1), 1_000_004, 8, True, "reg"),
+    "nine_n_odd": (tuple(range(-4, 5)), 100_003, 8, True, "reg"),
+    "below_tile": ((-1, 0, 1), 777, 8, True, "reg"),
+    "tiny": (tuple(range(-4, 5)), 3, 8, True, "reg"),
+    "one_step": ((-2, 0, 3), 50_001, 1, True, "reg"),
+    "monomial": ((-1, 0, 1), 40_000, 8, False, "reg"),
+    "asym": ((-3, 0, 2), 65_548, 8, True, "reg"),
+    "nd16": (tuple(range(-8, 8)), 30_002, 8, True, "reg"),
+    "nd17": (tuple(range(-8, 9)), 30_001, 4, True, "reg"),
+    "wide_band": ((-20, -1, 0, 1, 20), 30_000, 4, True, "smem"),
+    "many_diagonals": (tuple(range(-10, 11)), 20_000, 8, True, "smem"),
+    "repeated": ((-1, 0, 0, 1), 10_000, 8, True, "smem"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_k1_matches_plain(cuda, case, dtype):
+    offsets, n, s, with_coefs, variant = K1_CASES[case]
+    assert cuda_spmv.k1_plan_for(offsets, s, dtype).variant == variant
+    D, X = _operands(n, offsets, dtype, cuda, seed=12)
+    c = (np.stack([np.linspace(-0.3, 0.3, s), np.r_[0.0, np.full(s - 1, 0.01)]], 1)
+         if with_coefs else None)
+    before = dict(cuda_spmv.LAUNCHES)
+    V, last = cuda_spmv.dia_powers_fused(D, X, c, offsets, s)
+    assert cuda_spmv.LAUNCHES["dia_powers_fused"] == before["dia_powers_fused"] + 1
+    key = "dia_powers_" + variant
+    assert cuda_spmv.LAUNCHES[key] == before[key] + 1
+    Vr, lr = cuda_spmv.dia_powers_fused_ref(D, X, c, offsets, s)
+    assert _rel(V, Vr) <= BOUND[dtype] and _rel(last, lr) <= BOUND[dtype]
+    torch.cuda.synchronize()

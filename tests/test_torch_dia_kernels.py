@@ -1,7 +1,7 @@
 """PyTorch port, ops/cuda_spmv.py: the plain versions of K1
 (``dia_powers_fused_ref``) and K2 (``dia_power_step_ref``) against the
 TPU kernels run in Pallas interpret mode on CPU (as tests/test_pallas.py
-runs them), and the wrappers' CPU path, operand checks and tile picker.
+runs them), and the wrappers' CPU path, operand checks and K1 planner.
 
 Tolerances: f64 rtol 1e-12, f32 rtol 1e-5 relative to max|ref| per step
 (the interpret kernel sums the diagonals as a balanced tree, the port in
@@ -179,3 +179,129 @@ def test_fused_tile_budget_and_fallback():
     # a halo wider than any tile: 0 (the dispatcher then runs K2 steps)
     assert cuda_spmv.fused_tile(5, 2000, 8, torch.float32) == 0
     assert cuda_spmv.fused_tile(cuda_spmv.MAX_DIAGS + 1, 1, 2, torch.float32) == 0
+
+
+def _fused_tile_before(nd, wmax, s, item):
+    """The tile rule K1 had before its register kernel: the shapes it
+    fitted must still fit."""
+    if nd > cuda_spmv.MAX_DIAGS or s > cuda_spmv.MAX_STEPS:
+        return 0
+    halo = s * max(wmax, 1)
+    for budget in (cuda_spmv.SMEM_TARGET, cuda_spmv.SMEM_MAX):
+        for t in (4096, 2048, 1024, 512, 256):
+            if halo <= t and (nd + 2) * (t + 2 * halo) * item <= budget:
+                return t
+    return 0
+
+
+def _check_plan(plan, nd, wmax, s, item):
+    if _fused_tile_before(nd, wmax, s, item):
+        assert plan.variant != "steps", (nd, wmax, s)
+    if plan.variant == "steps":
+        assert plan == cuda_spmv.STEPS_PLAN
+        return
+    window = plan.tile + 2 * plan.halo
+    assert plan.halo >= s * wmax and plan.tile >= 1
+    if s > 1:
+        assert plan.halo <= plan.tile
+    assert plan.smem == cuda_spmv.k1_smem(nd, window, plan.bw, item) <= cuda_spmv.SMEM_MAX
+    if plan.variant == "reg":
+        # whole quads for every thread, the halo and tile whole quads too
+        assert plan.quads == cuda_spmv.K1_REG_QUADS[item][plan.bw]
+        assert window == 4 * cuda_spmv.K1_THREADS * plan.quads
+        assert plan.halo % 4 == 0 and plan.tile % 4 == 0 and wmax <= plan.bw
+    else:
+        assert (plan.quads, plan.bw) == (0, 0) and plan.halo == s * max(wmax, 1)
+
+
+# (nd, max |offset|, s, variant): bench.py's shape and main path A's, a band
+# too wide for the register kernel, one too wide for any s-step window,
+# 16 and 17 diagonals inside +-8 (the register kernel's widest band) and 17
+# outside it, a single diagonal, and a halo that leaves the register
+# kernel's window no tile.
+K1_PLAN_CASES = {
+    "bench": (9, 4, 8, "reg"),
+    "path_a": (3, 1, 8, "reg"),
+    "wide_band": (5, 100, 4, "smem"),
+    "too_wide": (5, 2000, 8, "steps"),
+    "nd16": (16, 8, 8, "reg"),
+    "nd17_in_band": (17, 8, 8, "reg"),
+    "nd17_wider": (17, 10, 8, "smem"),
+    "diagonal": (1, 0, 8, "reg"),
+    "many_steps": (9, 8, 64, "smem"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(K1_PLAN_CASES))
+def test_k1_plan(case, dtype):
+    nd, wmax, s, variant = K1_PLAN_CASES[case]
+    item = torch.empty((), dtype=dtype).element_size()
+    plan = cuda_spmv.k1_plan(nd, wmax, s, dtype)
+    assert plan.variant == variant
+    _check_plan(plan, nd, wmax, s, item)
+    assert cuda_spmv.fused_tile(nd, wmax, s, dtype) == plan.tile
+    # repeated offsets never take the register kernel (its band slots hold
+    # one plane each)
+    again = cuda_spmv.k1_plan(nd, wmax, s, dtype, distinct=False)
+    assert again.variant != "reg"
+    _check_plan(again, nd, wmax, s, item)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_plan_sweep_fits(dtype):
+    item = torch.empty((), dtype=dtype).element_size()
+    for nd in (1, 2, 3, 5, 9, 16, 17, 33, 128, 129):
+        for wmax in (0, 1, 2, 3, 4, 5, 8, 9, 64, 500, 4096):
+            for s in (1, 2, 4, 8, 16, 64, 65):
+                plan = cuda_spmv.k1_plan(nd, wmax, s, dtype)
+                _check_plan(plan, nd, wmax, s, item)
+                if nd <= min(2 * wmax + 1, 17) and wmax <= 8 and s <= 8:
+                    assert plan.variant == "reg", (nd, wmax, s)
+
+
+def _tiled_powers(data, x, coefs, offsets, s, plan):
+    """K1 as its tiles compute it: each tile runs the s steps on its window
+    alone (zero beyond the window and outside [0, n)) and keeps its owned
+    rows; the plan's halo must make that equal to the whole recurrence."""
+    nd, n = data.shape
+    window = plan.tile + 2 * plan.halo
+    V = torch.empty((s, n), dtype=x.dtype)
+    for t0 in range(0, n, plan.tile):
+        lo, hi = t0 - plan.halo, t0 - plan.halo + window
+        a, b = max(lo, 0), min(hi, n)
+        dw = torch.zeros((nd, window), dtype=data.dtype)
+        xw = torch.zeros(window, dtype=x.dtype)
+        dw[:, a - lo:b - lo] = data[:, a:b]
+        xw[a - lo:b - lo] = x[a:b]
+        Vw, _ = cuda_spmv.dia_powers_fused_ref(dw, xw, coefs, offsets, s)
+        keep = min(plan.tile, n - t0)
+        V[:, t0:t0 + keep] = Vw[:, plan.halo:plan.halo + keep]
+    return V
+
+
+# (offsets, n, s, Newton coefficients): ragged and whole last tiles, n below
+# one tile, s = 1 and 8, asymmetric offsets, the widest register band, the
+# shared-memory fallback's window.
+K1_TILE_CASES = {
+    "tri_ragged": ((-1, 0, 1), 3 * 2040 + 37, 8, True),
+    "nine_whole": (tuple(range(-4, 5)), 4 * 960, 8, True),
+    "below_tile": (tuple(range(-4, 5)), 301, 8, False),
+    "one_step": ((-2, 0, 3), 2500, 1, True),
+    "asym": ((-3, 0, 2), 5003, 8, True),
+    "band16": (tuple(range(-8, 8)), 2 * 896 + 5, 8, True),
+    "smem": ((-30, -1, 0, 1, 30), 9000, 4, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1_TILE_CASES))
+def test_k1_tiles_recompose_the_recurrence(case):
+    offsets, n, s, newton = K1_TILE_CASES[case]
+    rng = np.random.default_rng(12)
+    data = torch.as_tensor(rng.standard_normal((len(offsets), n)) * 0.3)
+    x = torch.as_tensor(rng.standard_normal(n))
+    c = _coefs(s, newton, seed=13)
+    plan = cuda_spmv.k1_plan_for(offsets, s, torch.float64)
+    assert plan.variant == ("smem" if case == "smem" else "reg")
+    Vr, _ = cuda_spmv.dia_powers_fused_ref(data, x, c, offsets, s)
+    _close_per_step(_tiled_powers(data, x, c, offsets, s, plan).numpy(), Vr.numpy(), 1e-12)
