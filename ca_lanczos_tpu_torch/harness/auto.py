@@ -9,10 +9,17 @@ pipeline: ``polish=``, ``over_lock=``).
 Raw input is routed onto ``device="cuda"`` unless the caller asks for
 another device.
 
-Ported legs: the explicit-restart driver with ``engine="fused"``
-(``solvers.fused_restarted``).  The host ``restarted_ca_lanczos`` and the
-``impl_restarted_ca_lanczos`` legs raise ``NotImplementedError`` naming
-their ROADMAP item; no other driver stands in for them.
+No cheap spectral probe reliably predicts which spectra defeat the
+explicit-restart driver at a given budget, so ``solve_auto`` guarantees
+by escalation: it runs the driver the probe prefers first and, if that
+returns unconverged, walks the rest of the ladder at the same budget —
+the other driver (explicit thick restart <-> implicitly-restarted with
+locking), then the rescue rungs (full reorthogonalization at the case's
+s; s=4 full-orth for both drivers; an m=96 IRL rung).  Every leg runs in
+the port: ``engine="host"`` (the default) takes the host-controlled
+``solvers.restarted.restarted_ca_lanczos`` for the explicit rung,
+``engine="fused"`` the device-resident ``solvers.fused_restarted``; the
+IRL rungs are ``solvers.implicitly_restarted.impl_restarted_ca_lanczos``.
 """
 
 from __future__ import annotations
@@ -109,12 +116,17 @@ def _run(solver: str, A, r, max_lanczos: int, cfg: LanczosConfig,
                 mixed_precision=cfg.orth_params.mixed_precision,
                 cycles_per_call=cycles_per_call,
             )
-        raise NotImplementedError(
-            "the host restarted_ca_lanczos driver is not ported yet "
-            "(ROADMAP A.5); use engine='fused'"
-        )
-    raise NotImplementedError(
-        f"{solver} is not ported yet (ROADMAP A.11)"
+        from ca_lanczos_tpu_torch.solvers.restarted import restarted_ca_lanczos
+
+        return restarted_ca_lanczos(A, r, max_lanczos, cfg)
+    from ca_lanczos_tpu_torch.solvers.implicitly_restarted import (
+        impl_restarted_ca_lanczos,
+    )
+
+    return impl_restarted_ca_lanczos(
+        A, r, max_lanczos,
+        n_wanted=cfg.n_wanted, s=cfg.s, basis=cfg.basis, orth=cfg.orth,
+        tol=cfg.tol, max_restarts=cfg.max_restarts,
     )
 
 
@@ -175,6 +187,8 @@ def solve_auto(
         raw = A
         A, route = make_operator(A, device=device, **route_kwargs)
         r = torch.as_tensor(route.apply(np.asarray(r)), dtype=A.dtype, device=A.device)
+    else:
+        r = torch.as_tensor(r, dtype=A.dtype, device=A.device)
     dev = A.device
     _sync(dev)
     times["route"] = time.perf_counter() - t0

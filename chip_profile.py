@@ -2,8 +2,8 @@
 """Profile the stages of the PyTorch/CUDA port's main paths on one GPU.
 
 Run from the root of a checkout:
-``python3 chip_profile.py [--root DIR] [A] [B] [C] [D]`` (no letter: all
-four).  ``--root DIR`` profiles the package of another tree unpacked at DIR
+``python3 chip_profile.py [--root DIR] [A] [B] [C] [D] [E] [F]`` (no
+letter: all six).  ``--root DIR`` profiles the package of another tree unpacked at DIR
 (for instance the parent commit, as for chip_compare.py), so that two
 versions are measured in one call.
 
@@ -11,13 +11,16 @@ It takes chip_smoke.py's configurations (A: the 11,010,048-row f32 flagship
 tridiagonal with prefer="dia", solved through K1; B: 4,194,304 rows with
 prefer="auto", solved on the interleaved route through K3; C: the
 11,010,048-row PELL oracle matrix with prefer="pell", encoding="auto",
-solved through K5; D: the same with encoding="unit", solved through K4),
-runs each stage of ``solve_auto`` on its own and prints, per
-configuration:
+solved through K5; D: the same with encoding="unit", solved through K4;
+E: A's matrix solved by the host driver ``restarted_ca_lanczos``, the
+default engine; F: chip_smoke.py's clustered float64 matrix solved by the
+IRL ``impl_restarted_ca_lanczos`` at max_lanczos=48), runs each stage of
+``solve_auto`` on its own and prints, per configuration:
 
 * route seconds (``make_operator``) and probe seconds (``recommend_solver``);
-* the fused solve's wall seconds unprofiled, twice (the first run pays the
-  first use of cuBLAS/cuSOLVER), restarts and locked pairs;
+* the solve's wall seconds unprofiled, twice (the first run pays the
+  first use of cuBLAS/cuSOLVER), restarts and locked pairs (the fused
+  driver for A-D, the host drivers for E and F);
 * the same solve under ``torch.profiler``: device busy seconds (the union
   of the device's kernel and copy intervals), the idle share
   ``1 - busy / unprofiled wall`` (the profiler slows the host, so its own
@@ -88,7 +91,8 @@ def profiled(torch, label: str, fn, wall: float):
                                     max_name_column_width=60))
 
 
-def configuration(torch, label: str, a, prefer: str, **route_kw) -> None:
+def configuration(torch, label: str, a, prefer: str, driver: str = "fused",
+                  max_lanczos: int = 32, **route_kw) -> None:
     import scipy.sparse as sp
 
     from ca_lanczos_tpu_torch.config import LanczosConfig
@@ -97,12 +101,14 @@ def configuration(torch, label: str, a, prefer: str, **route_kw) -> None:
     from ca_lanczos_tpu_torch.ops.formats import make_operator
     from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
     from ca_lanczos_tpu_torch.solvers.fused_restarted import fused_restarted_ca_lanczos
+    from ca_lanczos_tpu_torch.solvers.implicitly_restarted import impl_restarted_ca_lanczos
+    from ca_lanczos_tpu_torch.solvers.restarted import restarted_ca_lanczos
     from ca_lanczos_tpu_torch.solvers.polish import rayleigh_ritz_polish
 
     n = a.shape[0]
-    a32 = a.astype(np.float32)
+    a_solve = a if driver == "irl" else a.astype(np.float32)  # F runs in float64
     cfg = LanczosConfig(n_wanted=13, s=8, tol=1e-4, max_restarts=200)  # 10 + over_lock 3
-    (A, route), t = timed(torch, lambda: make_operator(a32, prefer=prefer, device=DEVICE,
+    (A, route), t = timed(torch, lambda: make_operator(a_solve, prefer=prefer, device=DEVICE,
                                                        **route_kw))
     print(f"== {label}: n={n} prefer={prefer} {route_kw} route={route.format} "
           f"{getattr(A, 'enc', '')} make_operator {t:.3f}s")
@@ -111,14 +117,21 @@ def configuration(torch, label: str, a, prefer: str, **route_kw) -> None:
     print(f"{label} probe {t:.3f}s -> {rec['driver']}")
 
     def solve():
-        return fused_restarted_ca_lanczos(A, r, 32, n_wanted=cfg.n_wanted, s=cfg.s,
+        if driver == "host":
+            return restarted_ca_lanczos(A, r, max_lanczos, cfg)
+        if driver == "irl":
+            return impl_restarted_ca_lanczos(A, r, max_lanczos, n_wanted=cfg.n_wanted, s=cfg.s,
+                                             basis=cfg.basis, orth=cfg.orth, tol=cfg.tol,
+                                             max_restarts=cfg.max_restarts)
+        return fused_restarted_ca_lanczos(A, r, max_lanczos, n_wanted=cfg.n_wanted, s=cfg.s,
                                           basis=cfg.basis, tol=cfg.tol,
                                           max_restarts=cfg.max_restarts)
 
     for rep in range(2):
         res, wall = timed(torch, solve)
+        locked = int(np.sum(np.isfinite(np.asarray(res.eigs, np.float64))))
         print(f"{label} solve unprofiled rep{rep}: {wall:.3f}s "
-              f"restarts={res.n_restarts} nconv={res.nconv} converged={res.converged}")
+              f"restarts={res.n_restarts} locked={locked} converged={res.converged}")
     profiled(torch, f"{label} solve", solve, wall)
     Q = route.restore(res.Q_conv)
     if route.perm is None:
@@ -155,7 +168,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     chip_smoke.phase0(torch)
-    which = set(args) or {"A", "B", "C", "D"}
+    which = set(args) or {"A", "B", "C", "D", "E", "F"}
     if "A" in which:
         configuration(torch, "A", chip_smoke.flagship(11010048)[0], "dia")
     if "B" in which:
@@ -166,6 +179,11 @@ def main() -> int:
     if "D" in which:
         configuration(torch, "D", chip_smoke.pell_operator(chip_smoke.PELL_N)[0], "pell",
                       encoding="unit")
+    if "E" in which:
+        configuration(torch, "E", chip_smoke.flagship(11010048)[0], "dia", driver="host")
+    if "F" in which:
+        configuration(torch, "F", chip_smoke.cluster(11010048)[0], "dia", driver="irl",
+                      max_lanczos=48)
     return 0
 
 

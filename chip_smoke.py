@@ -20,9 +20,10 @@ Phase 1  each kernel against its plain PyTorch version on the card, f32 and
          K1-K3 at bench.py's operator (4,194,304 rows x 9 diagonals, s=8,
          Newton coefficients from the port's own bootstrap), and K1 again
          at main path A's (11,010,048 rows, tridiagonal, s=8; printed, not
-         in the JSON line); K1 and K3 do s steps, for which no single
-         library call exists, so their library_ms is null and s x the CSR
-         time is printed beside them.
+         in the JSON line, with s x one CSR matvec of that matrix beside
+         it); K1 and K3 do s steps, for which no single library call
+         exists, so their library_ms is null and s x the CSR time is
+         printed beside them.
          K4 and K5 on the planes of exp/pell_10m_e2e.py's operator
          (11,010,048 rows, encoded "unit", "auto" (it must pick grouped)
          and "grouped4").
@@ -35,10 +36,23 @@ Phase C  main path C: ``solve_auto`` on the PELL oracle matrix (f32),
          prefer="pell", encoding="auto" -> grouped planes -> K5; checked
          against exp/pell_10m_oracle_11010048.npz.
 Phase D  main path D: the same CSR with encoding="unit" -> K4.
+Phase E  main path E: path A's matrix and settings at ``solve_auto``'s
+         default engine ("host"): the reference's flagship driver,
+         ``restarted_ca_lanczos`` (explicit restart, host control), powers
+         through K1, every SpMV through K2.
+Phase F  main path F: the IRL as first rung — the same recipe with a
+         planted top cluster of 10 eigenvalues spaced 0.01 that decouples
+         exactly (the probe finds it clustered), float64 (in float32 the
+         IRL's s=8 CA extension breaks down, in the JAX package too),
+         max_lanczos=48, default engine; checked against the planted
+         values.
 
-Every launch counter is set to 0 just before each main path and read just
-after it; a kernel's ``launches`` is the sum over the main paths.  Any
-failed check raises (exit code != 0).  The line before the last is
+Phases 2 and 3, C and D use engine="fused"; paths A-D check the label
+"restarted_ca_lanczos+polish10", E the same at the host engine, F
+"impl_restarted_ca_lanczos+polish10"; none may escalate.  Every launch
+counter is set to 0 just before each main path and read just after it; a
+kernel's ``launches`` is the sum over the main paths.  Any failed check
+raises (exit code != 0).  The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -316,6 +330,16 @@ def phase1_dia(torch):
     nd, n = data.shape
     nnz = sum(n - abs(o) for o in offsets)
     coefs = newton_coefs(torch, data, offsets, x, s)
+    rows = [np.arange(max(0, -o), min(n, n - o)) for o in offsets]
+    csr = sp.csr_matrix((np.concatenate([data[d, r] for d, r in enumerate(rows)]),
+                         (np.concatenate(rows),
+                          np.concatenate([r + o for r, o in zip(rows, offsets)]))), (n, n))
+    Acsr = csr_library(torch, csr, torch.float32)
+    xl = torch.as_tensor(x, device="cuda")
+    csr_ms = time_ms(torch, lambda: Acsr @ xl)
+    log(f"library at path A's shape: torch.sparse CSR f32 matvec (n={n}, nnz={csr.nnz}) "
+        f"{csr_ms:.4f} ms; s x CSR = {s * csr_ms:.4f} ms")
+    del Acsr, csr, xl
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
         item = torch.empty((), dtype=dt).element_size()
@@ -449,26 +473,46 @@ def flagship(n: int):
     return a, exact
 
 
-def main_path(torch, label: str, a32, exact, fmt: str, launches_key: str, totals: dict,
-              **route_kw):
+def cluster(n: int):
+    """Phase F's matrix: the flagship recipe with the top 10 diagonal
+    entries replaced by a cluster 99 + 0.01 k (k = 0..9) and the
+    off-diagonals of the last 11 rows set to 0, so that the last 10 rows
+    and columns decouple and the top 10 eigenvalues are exactly those
+    entries (the rest lie below 90.01).  f64; returns (a, exact desc)."""
+    import scipy.sparse as sp
+
+    d = np.linspace(1.0, 90.0, n)
+    d[-10:] = 99.0 + 0.01 * np.arange(10)
+    off = np.random.default_rng(0).standard_normal(n) * 1e-3
+    off[n - 11:] = 0.0
+    a = sp.diags([off[:-1], d, off[:-1]], [-1, 0, 1], format="csr")
+    return a, d[-10:][::-1].copy()
+
+
+def main_path(torch, label: str, a, exact, fmt: str, launched, totals: dict,
+              solver: str = "restarted_ca_lanczos+polish10", max_lanczos: int = 32,
+              **kw) -> dict:
     """One solve_auto on the card with every launch counter set to 0 just
-    before and read just after; adds the counts to ``totals``."""
+    before and read just after; adds the counts to ``totals``, checks the
+    result (every key of ``launched`` launched) and returns the figures
+    that are printed."""
     from ca_lanczos_tpu_torch.config import LanczosConfig
     from ca_lanczos_tpu_torch.harness.auto import solve_auto
 
-    n = a32.shape[0]
+    n = a.shape[0]
     for counts in counters():
         for k in counts:
             counts[k] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = solve_auto(
-        a32, np.ones(n), 32,
+        a, np.ones(n), max_lanczos,
         LanczosConfig(n_wanted=10, s=8, tol=1e-4, max_restarts=200),
-        engine="fused", polish=10, over_lock=3, device="cuda", **route_kw,
+        polish=10, over_lock=3, device="cuda", **kw,
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
     delta = {k: v for counts in counters() for k, v in counts.items()}
     for k, v in delta.items():
         totals[k] = totals.get(k, 0) + v
@@ -483,21 +527,31 @@ def main_path(torch, label: str, a32, exact, fmt: str, launches_key: str, totals
     log(f"{label}: eig_rel_err={err:.3e} (bound 1e-6) "
         f"max_polish_resid/|A|={float(np.max(res.polish_resid)) / abs(float(exact[0])):.3e} "
         f"launches={delta}")
-    log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{label}: peak device memory {peak:.2f} GiB")
     checks = {
         f"route.format == {fmt!r}": res.route.format == fmt,
-        "solver == 'restarted_ca_lanczos+polish10'":
-            res.solver == "restarted_ca_lanczos+polish10",
+        f"solver == {solver!r}": res.solver == solver,
+        "not escalated": not res.escalated,
         "converged": res.converged,
-        f"{launches_key} launched": delta[launches_key] > 0,
         "eig_rel_err <= 1e-6": err <= 1e-6,
         "Q_conv (n, 10) finite": tuple(Q.shape) == (n, 10) and bool(torch.isfinite(Q).all()),
     }
+    checks.update({f"{k} launched": delta[k] > 0 for k in launched})
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{label} failed: {failed}")
+    out = dict(restarts=res.n_restarts, stages=dict(res.stage_seconds), total=wall, peak=peak,
+               err=err)
     del res, Q
     torch.cuda.empty_cache()
+    return out
+
+
+def phase(torch, name: str, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"{name}: {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def main() -> int:
@@ -530,27 +584,39 @@ def main() -> int:
     log(f"phase 1 (kernels vs plain): {time.perf_counter() - t0:.1f}s")
 
     totals: dict = {}
-    t0 = time.perf_counter()
     fa, exact = flagship(11010048)
-    main_path(torch, "phase 2 (main path A, DIA/K1)", fa.astype(np.float32), exact, "dia",
-              "dia_powers_fused", totals, prefer="dia")
+    fa32 = fa.astype(np.float32)
     del fa
-    log(f"phase 2: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    fb, exact = flagship(4194304)
-    main_path(torch, "phase 3 (main path B, ilv/K3)", fb.astype(np.float32), exact, "ilv",
-              "dia_powers_ilv", totals, prefer="auto")
+    path_a = phase(torch, "phase 2", lambda: main_path(
+        torch, "phase 2 (main path A, DIA/K1)", fa32, exact, "dia", ["dia_powers_fused"],
+        totals, engine="fused", prefer="dia"))
+    fb, exact_b = flagship(4194304)
+    phase(torch, "phase 3", lambda: main_path(
+        torch, "phase 3 (main path B, ilv/K3)", fb.astype(np.float32), exact_b, "ilv",
+        ["dia_powers_ilv"], totals, engine="fused", prefer="auto"))
     del fb
-    log(f"phase 3: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
     # phase 1 showed that encoding="auto" picks grouped on this matrix
-    main_path(torch, "phase C (main path C, PELL grouped/K5)", a32, pell_exact, "pell",
-              "pell_step_grouped", totals, prefer="pell", encoding="auto")
-    log(f"phase C: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    main_path(torch, "phase D (main path D, PELL unit/K4)", a32, pell_exact, "pell",
-              "pell_step_unit", totals, prefer="pell", encoding="unit")
-    log(f"phase D: {time.perf_counter() - t0:.1f}s")
+    phase(torch, "phase C", lambda: main_path(
+        torch, "phase C (main path C, PELL grouped/K5)", a32, pell_exact, "pell",
+        ["pell_step_grouped"], totals, engine="fused", prefer="pell", encoding="auto"))
+    phase(torch, "phase D", lambda: main_path(
+        torch, "phase D (main path D, PELL unit/K4)", a32, pell_exact, "pell",
+        ["pell_step_unit"], totals, engine="fused", prefer="pell", encoding="unit"))
+    del a32
+    path_e = phase(torch, "phase E", lambda: main_path(
+        torch, "phase E (main path E, host restarted_ca_lanczos/K1+K2)", fa32, exact, "dia",
+        ["dia_powers_fused", "dia_power_step"], totals, prefer="dia"))
+    del fa32
+    fc, exact_f = cluster(11010048)
+    path_f = phase(torch, "phase F", lambda: main_path(
+        torch, "phase F (main path F, IRL first rung, f64/K1)", fc, exact_f, "dia",
+        ["dia_powers_fused"], totals, solver="impl_restarted_ca_lanczos+polish10",
+        max_lanczos=48, prefer="dia"))
+    del fc
+    for label, p in (("A (fused)", path_a), ("E (host)", path_e), ("F (IRL, f64)", path_f)):
+        log(f"paths side by side: {label}: restarts={p['restarts']} "
+            + " ".join(f"{k}={v:.2f}s" for k, v in p["stages"].items())
+            + f" total={p['total']:.2f}s peak={p['peak']:.2f} GiB eig_rel_err={p['err']:.3e}")
 
     for row in rows:
         row["launches"] = totals.get(row["name"], 0)

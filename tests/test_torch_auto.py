@@ -1,9 +1,11 @@
 """PyTorch port, the slices as a whole: ``solve_auto`` (route -> probe ->
-fused solve -> f64 polish) against the JAX package on the two-stage
-operator of tests/test_harness.py TestTwoStagePolish and on a small
-general-sparsity (PELL-routed) operator, ``make_operator``'s interleaved
-and PELL routes, the legs that are not ported, the entry points' CUDA
-default, and the package's independence from JAX.
+solve -> f64 polish) against the JAX package on the two-stage operator of
+tests/test_harness.py TestTwoStagePolish (fused and host engines) and on a
+small general-sparsity (PELL-routed) operator, the host escalation ladder
+on tests/test_harness.py's fast-path and escalation cases and with the IRL
+as first rung (chip_smoke.py phase F's recipe), ``make_operator``'s
+interleaved and PELL routes, the entry points' CUDA default, and the
+package's independence from JAX.
 
 Eigenvalues: rtol 1e-10 against JAX and against the exact eigenvalues of
 the matrix the polish sees (the f32-rounded one for f32 input); the
@@ -13,6 +15,7 @@ import os
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.linalg as sla
@@ -21,9 +24,10 @@ import scipy.sparse.linalg as spla
 import torch
 
 from ca_lanczos_tpu.config import LanczosConfig as JConfig
+from ca_lanczos_tpu.config import Orth as JOrth
 from ca_lanczos_tpu.harness.auto import solve_auto as jsolve_auto
 from ca_lanczos_tpu.ops.formats import make_operator as jmake_operator
-from ca_lanczos_tpu_torch.config import LanczosConfig
+from ca_lanczos_tpu_torch.config import LanczosConfig, Orth
 from ca_lanczos_tpu_torch.harness.auto import solve_auto
 from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
 from ca_lanczos_tpu_torch.ops.formats import make_operator
@@ -132,16 +136,84 @@ def test_permuted_route_polishes_on_host():
     assert res.Q_conv.shape == (16384, 3)
 
 
-def test_unported_legs_raise():
-    a = _op()
-    r = np.ones(a.shape[0])
-    cfg = LanczosConfig(n_wanted=3, s=4, tol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        solve_auto(a, r, 32, cfg, engine="host", prefer="dia", device="cpu")
-    # one restart cannot converge: the ladder's next leg (the IRL) raises
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        solve_auto(a, r, 32, LanczosConfig(n_wanted=3, s=4, tol=1e-12, max_restarts=1),
-                   engine="fused", prefer="dia", device="cpu")
+def _diag_op(vals):
+    from ca_lanczos_tpu.ops.spmv import DiaMatrix as JDia
+
+    Aj = JDia(data=jnp.asarray(np.asarray(vals, np.float64))[None, :], offsets=(0,))
+    return Aj, operator_from_numpy(Aj, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["fast_path", "escalates"])
+def test_solve_auto_host_engine_matches_jax(case):
+    # tests/test_harness.py's fast-path and escalation cases at solve_auto's
+    # default engine ("host"): the explicit driver converges first on a
+    # separated top; on a cluster just below the probe's resolution the
+    # probe routes it to the explicit driver, which stalls, and the ladder
+    # converges it at the same budget
+    n = 400
+    if case == "fast_path":
+        vals = np.linspace(1.0, 100.0, n)
+        r = np.random.default_rng(1).random(n)
+        cfg, m = dict(s=4, n_wanted=4, tol=1e-9), 32
+    else:
+        vals = np.concatenate([np.linspace(1.0, 50.0, n - 4), 100.0 + 2e-4 * np.arange(4)])
+        r = np.random.default_rng(0).random(n)
+        cfg, m = dict(s=4, n_wanted=4, orth=Orth.FULL, tol=1e-9, max_restarts=60), 24
+    Aj, A = _diag_op(vals)
+    jcfg = dict(cfg, orth=JOrth(cfg["orth"].value)) if "orth" in cfg else cfg
+    rj = jsolve_auto(Aj, jnp.asarray(r), m, JConfig(**jcfg))
+    rt = solve_auto(A, r, m, LanczosConfig(**cfg), device="cpu")
+    assert rt.converged and rj.converged
+    assert (rt.solver, rt.escalated, rt.n_restarts) == (rj.solver, rj.escalated, rj.n_restarts)
+    if case == "fast_path":
+        assert rt.solver == "restarted_ca_lanczos" and not rt.escalated
+    np.testing.assert_allclose(rt.eigs, np.asarray(rj.eigs), rtol=1e-10)
+    np.testing.assert_allclose(np.sort(rt.eigs)[::-1][:4], np.sort(vals)[::-1][:4], rtol=1e-8)
+
+
+def _cluster_op(n):
+    """chip_smoke.py phase F's recipe (see there) at a small n: a planted
+    top cluster of 10 spaced 0.01 that decouples exactly."""
+    d = np.linspace(1.0, 90.0, n)
+    d[-10:] = 99.0 + 0.01 * np.arange(10)
+    off = np.random.default_rng(0).standard_normal(n) * 1e-3
+    off[n - 11:] = 0.0
+    return sp.diags([off[:-1], d, off[:-1]], [-1, 0, 1], format="csr"), d[-10:][::-1]
+
+
+def test_solve_auto_irl_first_rung_matches_jax():
+    # the probe finds the cluster, so the IRL is the first rung
+    a, exact = _cluster_op(4096)
+    r = np.ones(4096)
+    kw = dict(polish=10, over_lock=3, prefer="dia")
+    cfg = dict(n_wanted=10, s=8, tol=1e-4, max_restarts=200)
+    rj = jsolve_auto(a, r, 48, JConfig(**cfg), **kw)
+    rt = solve_auto(a, r, 48, LanczosConfig(**cfg), **kw, device="cpu")
+    assert rt.solver == rj.solver == "impl_restarted_ca_lanczos+polish10"
+    assert rt.converged and not rt.escalated and not rj.escalated
+    assert rt.n_restarts == rj.n_restarts
+    got = np.sort(rt.eigs)[::-1]
+    np.testing.assert_allclose(got, np.sort(rj.eigs)[::-1], rtol=1e-10)
+    np.testing.assert_allclose(got, exact, rtol=1e-10)
+    assert rt.Q_conv.shape == (4096, 10) and bool(torch.isfinite(rt.Q_conv).all())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_solve_auto_host_flagship_matches_jax(dtype):
+    # chip_smoke.py phase E's settings on the two-stage operator
+    a = _op().astype(dtype)
+    r = np.random.default_rng(1).standard_normal(a.shape[0])
+    kw = dict(polish=6, over_lock=3, prefer="dia")
+    cfg = dict(n_wanted=5, s=8, tol=1e-4, max_restarts=100)
+    rj = jsolve_auto(a, r, 32, JConfig(**cfg), **kw)
+    rt = solve_auto(a, r, 32, LanczosConfig(**cfg), **kw, device="cpu")
+    assert rt.converged and rt.solver == rj.solver == "restarted_ca_lanczos+polish6"
+    assert not rt.escalated
+    if dtype == np.float64:
+        assert rt.n_restarts == rj.n_restarts
+    got = np.sort(rt.eigs)[::-1]
+    np.testing.assert_allclose(got, np.sort(rj.eigs)[::-1], rtol=1e-10)
+    np.testing.assert_allclose(got, _exact(a)[::-1][:5], rtol=1e-10)
 
 
 def _pell_op(n, bw=8, k=4, seed=0):
@@ -246,6 +318,7 @@ def _entry_points():
         "make_operator_pell": lambda: make_operator(band, prefer="pell"),
         "solve_auto": lambda: solve_auto(band, np.ones(3000), 32, LanczosConfig(n_wanted=3),
                                          engine="fused"),
+        "solve_auto_host": lambda: solve_auto(band, np.ones(3000), 32, LanczosConfig(n_wanted=3)),
         "dia_from_scipy": lambda: formats.dia_from_scipy(band),
         "PellMatrix.from_scipy": lambda: PellMatrix.from_scipy(band),
         "EllMatrix.from_scipy": lambda: spmv.EllMatrix.from_scipy(band),
@@ -285,6 +358,12 @@ def test_port_never_imports_jax():
             "ca_lanczos_tpu_torch.utils.interop, ca_lanczos_tpu_torch.ops.formats, "
             "ca_lanczos_tpu_torch.ops.pell, ca_lanczos_tpu_torch.ops.cuda_pell, "
             "ca_lanczos_tpu_torch.ops._pell_native, ca_lanczos_tpu_torch.utils._native_build, "
+            "ca_lanczos_tpu_torch.ops.orth, ca_lanczos_tpu_torch.solvers, "
+            "ca_lanczos_tpu_torch.solvers._block, ca_lanczos_tpu_torch.solvers.lanczos, "
+            "ca_lanczos_tpu_torch.solvers.ca_lanczos, ca_lanczos_tpu_torch.solvers.restarted, "
+            "ca_lanczos_tpu_torch.solvers.arnoldi, ca_lanczos_tpu_torch.solvers.implicitly_restarted, "
+            "ca_lanczos_tpu_torch.utils, ca_lanczos_tpu_torch.utils.diagnostics, "
+            "ca_lanczos_tpu_torch.utils.checkpoint, "
             "chip_smoke, chip_profile; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ca_lanczos_tpu')]; "
             "assert not bad, bad")

@@ -1,10 +1,14 @@
-"""PyTorch port, ops/qr.py, solvers/lanczos.py, solvers/ca_lanczos.py and
-the copied host modules (config, basis): parity with the JAX package on
+"""PyTorch port, ops/qr.py, solvers/lanczos.py (all four orth modes and
+diagnostics), solvers/ca_lanczos.py (the driver over basis x orth),
+utils/diagnostics.py and the copied host modules (config, basis,
+solvers/_block.py, OmegaRecurrence): parity with the JAX package on
 identical numpy inputs, float64.
 
 Tolerances: R factors 1e-12 relative and ||Q^T Q - I|| <= 1e-12 (CholQR2
-is orthonormal to roundoff at these condition numbers); Lanczos T and
-Bk 1e-10 (a 2s-step recurrence amplifies last-bit differences)."""
+is orthonormal to roundoff at these condition numbers); Lanczos and
+CA-Lanczos T and Bk 1e-10 relative to their largest entry (a recurrence
+amplifies last-bit differences), Lanczos Q 1e-8; diagnostics 1e-8; the
+copied host modules are bit-identical."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,15 +19,22 @@ from ca_lanczos_tpu.basis.leja import leja as jleja
 from ca_lanczos_tpu.basis.newton import newton_basis_matrix as jnewton
 from ca_lanczos_tpu.config import Orth as JOrth
 from ca_lanczos_tpu.ops import qr as jqr
+from ca_lanczos_tpu.config import Basis as JBasis
 from ca_lanczos_tpu.solvers.ca_lanczos import build_basis_matrix as jbuild
+from ca_lanczos_tpu.solvers.ca_lanczos import ca_lanczos as jca_lanczos
 from ca_lanczos_tpu.solvers.lanczos import lanczos as jlanczos
+from ca_lanczos_tpu.utils.matrices import diag_spectrum as jdiag
 from ca_lanczos_tpu.utils.matrices import laplacian_1d as jlap1, laplacian_2d as jlap2
 from ca_lanczos_tpu_torch import config as tconfig
 from ca_lanczos_tpu_torch.basis.leja import leja as tleja
 from ca_lanczos_tpu_torch.basis.newton import newton_basis_matrix as tnewton
 from ca_lanczos_tpu_torch.config import Basis, Orth
 from ca_lanczos_tpu_torch.ops import qr as tqr
-from ca_lanczos_tpu_torch.solvers.ca_lanczos import build_basis_matrix, monomial_basis_matrix
+from ca_lanczos_tpu_torch.solvers.ca_lanczos import (
+    build_basis_matrix,
+    ca_lanczos,
+    monomial_basis_matrix,
+)
 from ca_lanczos_tpu_torch.solvers.lanczos import lanczos
 from ca_lanczos_tpu_torch.utils.interop import operator_from_numpy
 from ca_lanczos_tpu_torch.utils.matrices import diag_spectrum, laplacian_1d, laplacian_2d
@@ -112,14 +123,149 @@ def test_lanczos_T_matches_jax(orth, fixture):
     np.testing.assert_allclose(rt.T_ext, rj.T_ext, rtol=0, atol=1e-10 * np.abs(rj.T).max())
 
 
-def test_lanczos_unported_modes_raise():
-    A = laplacian_1d(50, device="cpu")
-    r = torch.ones(50, dtype=torch.float64)
-    for orth in (Orth.PERIODIC, Orth.SELECTIVE):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lanczos(A, r, 5, orth)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lanczos(A, r, 5, Orth.FULL, diagnostics=True)
+def _geo(n=300):
+    """Geometric spectrum logspace(0, 4): local orth loses orthogonality on
+    it (tests/test_lanczos.py), so periodic and selective both act."""
+    return np.logspace(0, 4, n)
+
+
+def _diag_pair(d):
+    from ca_lanczos_tpu.ops.spmv import DiaMatrix as JDia
+
+    Aj = JDia(data=jnp.asarray(np.asarray(d, np.float64))[None, :], offsets=(0,))
+    return Aj, operator_from_numpy(Aj, device="cpu")
+
+
+@pytest.mark.parametrize("orth", ["periodic", "selective"])
+def test_lanczos_periodic_selective_match_jax(orth):
+    Aj, A = _diag_pair(_geo())
+    r = np.random.default_rng(0).standard_normal(A.n)
+    rj = jlanczos(Aj, jnp.asarray(r), 60, JOrth(orth))
+    rt = lanczos(A, torch.as_tensor(r), 60, Orth(orth))
+    assert rt.n_reorth == rj.n_reorth > 0
+    np.testing.assert_allclose(rt.T, rj.T, rtol=0, atol=1e-10 * np.abs(rj.T).max())
+    np.testing.assert_allclose(rt.Q.numpy(), np.asarray(rj.Q), rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("orth", ["local", "full", "periodic", "selective"])
+def test_lanczos_diagnostics_match_jax(orth):
+    Aj = jdiag(100, 1.0, 10.0)
+    A = operator_from_numpy(Aj, device="cpu")
+    rj = jlanczos(Aj, jnp.ones(100), 15, JOrth(orth), diagnostics=True)
+    rt = lanczos(A, torch.ones(100, dtype=torch.float64), 15, Orth(orth), diagnostics=True)
+    assert rt.ritz_rnorm.shape == (15, 15) and rt.orth_err.shape == (15,)
+    np.testing.assert_allclose(rt.ritz_rnorm, rj.ritz_rnorm, rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(rt.orth_err, rj.orth_err, rtol=0, atol=1e-8)
+    assert rt.ritz_rnorm[-1, 0] < rt.ritz_rnorm[2, 0]
+
+
+@pytest.mark.parametrize("orth", ["local", "full", "periodic", "selective"])
+@pytest.mark.parametrize("basis", ["monomial", "newton"])
+def test_ca_lanczos_matches_jax(orth, basis):
+    # tests/test_ca_lanczos.py's geometric spectrum at s = 4 over 60 steps,
+    # where periodic and selective act.  Local orth loses orthogonality
+    # there and its ghost copies appear where last bits decide (in both
+    # packages alike), so it runs on the 2-D Laplacian, which keeps it.
+    if orth == "local":
+        Aj = jlap2(20, 15)
+        A = operator_from_numpy(Aj, device="cpu")
+    else:
+        Aj, A = _diag_pair(_geo())
+    r = np.random.default_rng(4).standard_normal(A.n)
+    rj = jca_lanczos(Aj, jnp.asarray(r), 4, 60, JBasis(basis), JOrth(orth))
+    rt = ca_lanczos(A, torch.as_tensor(r), 4, 60, Basis(basis), Orth(orth))
+    assert rt.n_reorth == rj.n_reorth
+    assert (rt.n_reorth > 0) == (orth in ("periodic", "selective"))
+    np.testing.assert_allclose(rt.Bk, rj.Bk, rtol=0, atol=1e-10 * np.abs(rj.Bk).max())
+    np.testing.assert_allclose(rt.T, rj.T, rtol=0, atol=1e-10 * np.abs(rj.T).max())
+    np.testing.assert_allclose(rt.beta, rj.beta, rtol=1e-10)
+    assert rt.Q.shape == (A.n, 60) and rt.T_ext.shape == (61, 60)
+
+
+@pytest.mark.parametrize("s", [2, 4, 6])
+def test_ca_lanczos_monomial_full_equals_standard(s):
+    Aj = jlap2(10, 10)
+    A = operator_from_numpy(Aj, device="cpu")
+    r = torch.as_tensor(np.random.default_rng(0).standard_normal(100))
+    std = lanczos(A, r, 4 * s, Orth.FULL)
+    ca = ca_lanczos(A, r, s, 4 * s, Basis.MONOMIAL, Orth.FULL)
+    caj = jca_lanczos(Aj, jnp.asarray(r.numpy()), s, 4 * s, JBasis.MONOMIAL, JOrth.FULL)
+    np.testing.assert_allclose(ca.T, caj.T, rtol=0, atol=1e-10 * np.abs(caj.T).max())
+    np.testing.assert_allclose(ca.T, std.T, atol=1e-7 * np.abs(std.T).max())
+
+
+def test_ca_lanczos_diagnostics_match_jax():
+    Aj = jdiag(100, 1.0, 10.0)
+    A = operator_from_numpy(Aj, device="cpu")
+    rj = jca_lanczos(Aj, jnp.ones(100), 4, 16, JBasis.MONOMIAL, JOrth.LOCAL, diagnostics=True)
+    rt = ca_lanczos(A, torch.ones(100, dtype=torch.float64), 4, 16, Basis.MONOMIAL,
+                    Orth.LOCAL, diagnostics=True, Bk=monomial_basis_matrix(4))
+    assert rt.ritz_rnorm.shape == (4, 16) and rt.orth_err.shape == (4,)
+    np.testing.assert_allclose(rt.ritz_rnorm, rj.ritz_rnorm, rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(rt.orth_err, rj.orth_err, rtol=0, atol=1e-8)
+
+
+def test_copied_block_recurrence_is_identical():
+    from ca_lanczos_tpu.solvers import _block as jblock
+    from ca_lanczos_tpu_torch.solvers import _block as tblock
+
+    rng = np.random.default_rng(8)
+    s = 5
+    Bk = tnewton(np.linspace(1.0, 3.0, s), s, modified=True)
+    Rk = np.triu(rng.standard_normal((s + 1, s + 1))) + 4 * np.eye(s + 1)
+    Rkk_s = rng.standard_normal((s + 1, s))
+    Rk_s = np.triu(rng.standard_normal((s, s))) + 4 * np.eye(s)
+    for rcond in (None, 1e-12):
+        a = tblock.first_block_T(Rk, Bk, s, rcond)
+        b = jblock.first_block_T(Rk, Bk, s, rcond)
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+        a = tblock.block_T(Rkk_s, Rk_s, Bk, 0.7, s, rcond)
+        b = jblock.block_T(Rkk_s, Rk_s, Bk, 0.7, s, rcond)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    T0 = tblock.first_block_T(Rk, Bk, s)[0]
+    Tk = tblock.block_T(Rkk_s, Rk_s, Bk, 0.7, s)[0]
+    np.testing.assert_array_equal(tblock.extend_T(T0, Tk, 0.7, 0.3, s),
+                                  jblock.extend_T(T0, Tk, 0.7, 0.3, s))
+
+
+def test_copied_omega_recurrence_is_identical():
+    from ca_lanczos_tpu.utils.diagnostics import OmegaRecurrence as JOmega
+    from ca_lanczos_tpu_torch.utils.diagnostics import OmegaRecurrence
+
+    rng = np.random.default_rng(9)
+    alpha, beta = rng.standard_normal(24), np.abs(rng.standard_normal(25)) + 0.1
+    a, b = OmegaRecurrence(7.0), JOmega(7.0)
+    for n in (4, 8, 16, 24):
+        np.testing.assert_array_equal(a.update(alpha[:n], beta[:n + 1]),
+                                      b.update(alpha[:n], beta[:n + 1]))
+        assert a.max_error_scalar() == b.max_error_scalar()
+        assert a.max_error_block(4) == b.max_error_block(4)
+    a.reset_scalar(), b.reset_scalar()
+    np.testing.assert_array_equal(a.omega, b.omega)
+    a.reset_block(4), b.reset_block(4)
+    np.testing.assert_array_equal(a.omega, b.omega)
+
+
+def test_orth_errors_match_jax():
+    from ca_lanczos_tpu.utils import diagnostics as jdiagn
+    from ca_lanczos_tpu_torch.utils import diagnostics as tdiagn
+
+    rng = np.random.default_rng(10)
+    Q = np.linalg.qr(rng.standard_normal((300, 12)))[0] + 1e-9 * rng.standard_normal((300, 12))
+    Qt = torch.as_tensor(Q)
+    assert tdiagn.orth_error_fro(Qt) == pytest.approx(jdiagn.orth_error_fro(Q), rel=1e-6)
+    # a sequence of blocks is their concatenation
+    assert tdiagn.orth_error_fro([Qt[:, :5], Qt[:, 5:]]) == pytest.approx(
+        jdiagn.orth_error_fro(Q), rel=1e-6)
+    assert tdiagn.orth_error_last(Qt) == pytest.approx(jdiagn.orth_error_last(Q), rel=1e-6)
+    for s in (3, 11, 12):
+        assert tdiagn.orth_error_block(Qt, s) == pytest.approx(
+            jdiagn.orth_error_block(Q, s), rel=1e-6)
+    Qc = Q + 1j * np.linalg.qr(rng.standard_normal((300, 12)))[0]
+    assert tdiagn.orth_error_fro(torch.as_tensor(Qc)) == pytest.approx(
+        jdiagn.orth_error_fro(Qc), rel=1e-10)
 
 
 @pytest.mark.parametrize("s", [4, 8])
@@ -160,3 +306,51 @@ def test_fixtures_match_jax_planes():
     assert laplacian_2d(5, 6, device="cpu").offsets == jlap2(5, 6).offsets
     np.testing.assert_allclose(diag_spectrum(10, device="cpu").data.numpy()[0],
                                np.linspace(1, 100, 10))
+
+
+def test_copied_qrstep_and_retridiagonalize_are_identical():
+    from ca_lanczos_tpu.solvers import implicitly_restarted as jirl
+    from ca_lanczos_tpu_torch.solvers import implicitly_restarted as tirl
+
+    rng = np.random.default_rng(11)
+    m = 12
+    a, b = rng.standard_normal(m), rng.standard_normal(m - 1)
+    T = np.diag(a) + np.diag(b, 1) + np.diag(b, -1)
+    for mu, k1 in ((np.linalg.eigvalsh(T)[0], 0), (0.3 + 0.2j, 3)):
+        Vt, Ht = tirl.qrstep(np.eye(m), T.copy(), mu, k1, m)
+        Vj, Hj = jirl.qrstep(np.eye(m), T.copy(), mu, k1, m)
+        np.testing.assert_array_equal(Vt, Vj)
+        np.testing.assert_array_equal(Ht, Hj)
+    d = np.sort(rng.standard_normal(9))
+    w = rng.standard_normal(9)
+    w[4] = 0.0
+    for x, y in zip(tirl._retridiagonalize(d, w), jirl._retridiagonalize(d, w)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_copied_checkpoint_reads_and_writes_the_jax_format(tmp_path):
+    from ca_lanczos_tpu.utils.checkpoint import RestartCheckpoint as JCheckpoint
+    from ca_lanczos_tpu_torch.utils.checkpoint import RestartCheckpoint
+
+    rng = np.random.default_rng(12)
+    gen = np.random.default_rng(3)
+    gen.random(5)
+    fields = dict(n_restarts=4, nconv=2, conv_eigs=[3.0, 2.5], conv_rnorms=[1e-9, 2e-9],
+                  orth_err=[1e-14] * 4, rnorm_rows=[rng.random(3) for _ in range(4)],
+                  Q_conv=rng.random((50, 2)), q=rng.random(50), Bk=rng.random((5, 4)),
+                  rng_state=gen.bit_generator.state)
+    for writer, reader in ((RestartCheckpoint, JCheckpoint), (JCheckpoint, RestartCheckpoint)):
+        path = str(tmp_path / f"{writer.__module__}.npz")
+        writer(**fields).save(path)
+        got = reader.load(path)
+        for key, want in fields.items():
+            val = getattr(got, key)
+            if key == "rng_state":
+                assert val == want
+            else:
+                np.testing.assert_array_equal(np.asarray(val), np.asarray(want))
+    empty = dict(fields, Q_conv=None, rnorm_rows=[])
+    path = str(tmp_path / "empty.npz")
+    RestartCheckpoint(**empty).save(path)
+    got = JCheckpoint.load(path)
+    assert got.Q_conv is None and got.rnorm_rows == []
