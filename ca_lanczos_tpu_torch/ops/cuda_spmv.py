@@ -14,6 +14,12 @@ and what bounds it):
   not fit shared memory, and, registered in ``ops.spmv.CUDA_MATVEC``, the
   ``spmv`` of a DiaMatrix and a real vector on CUDA.
 
+A complex vector on real planes of its precision (complex128 on float64,
+complex64 on float32) goes through the same kernels as its real and
+imaginary parts, one launch each (:func:`by_parts`): the operator and the
+recurrence coefficients are real, so that is the complex product.  Complex
+coefficients never reach a kernel.
+
 A wrapper takes its plain version only for CPU tensors.  For a CUDA tensor
 it launches the kernel or raises; it never casts.  Coefficients are host
 numbers (``(s, 2)`` rows ``[shift, sub]``), passed to the kernel by value.
@@ -290,6 +296,13 @@ def dia_power_step(data: torch.Tensor, x: torch.Tensor, v_prev: Optional[torch.T
     return y
 
 
+def by_parts(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of a complex x as fn(Re x) + i fn(Im x): two calls on
+    contiguous real vectors, for an ``fn`` that is real-linear with real
+    operator and coefficients (a K1/K2 launch each on CUDA)."""
+    return torch.complex(fn(x.real.contiguous()), fn(x.imag.contiguous()))
+
+
 def matrix_powers_dia_steps(A, q: torch.Tensor, s: int, diag=None, sub=None) -> torch.Tensor:
     """[q, P_1(A)q, ..., P_s(A)q] (n, s+1) through s launches of K2
     (counterpart of ``matrix_powers_dia_pallas``)."""
@@ -307,7 +320,10 @@ def matrix_powers_dia_steps(A, q: torch.Tensor, s: int, diag=None, sub=None) -> 
 
 def matrix_powers_dia_fused(A, q: torch.Tensor, s: int, diag=None, sub=None) -> torch.Tensor:
     """Fused-s matrix powers (n, s+1) through K1, or K2 when no K1 window
-    fits (mirror of the TPU ``fused_tile`` returning 0)."""
+    fits (mirror of the TPU ``fused_tile`` returning 0); a complex q by
+    its real and imaginary parts."""
+    if q.is_complex():
+        return by_parts(lambda v: matrix_powers_dia_fused(A, v, s, diag, sub), q)
     if k1_plan_for(tuple(A.offsets), s, q.dtype).variant == "steps":
         return matrix_powers_dia_steps(A, q, s, diag, sub)
     coefs = None
@@ -323,11 +339,15 @@ def matrix_powers_dia_fused(A, q: torch.Tensor, s: int, diag=None, sub=None) -> 
 
 def dia_matvec(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     """``spmv`` of a DiaMatrix and a vector on CUDA: one K2 launch with
-    zero coefficients when x is f32/f64 of the planes' dtype, the plain
-    product otherwise (complex vectors, more than MAX_DIAGS diagonals)."""
-    if x.dtype == A.data.dtype and x.dtype in (torch.float32, torch.float64) and (
-            len(A.offsets) <= MAX_DIAGS):
-        return dia_power_step(A.data, x.contiguous(), None, None, A.offsets)
+    zero coefficients when x is f32/f64 of the planes' dtype, two (its
+    real and imaginary parts) when x is complex of their precision; the
+    plain product otherwise (other dtypes, more than MAX_DIAGS
+    diagonals)."""
+    if A.data.dtype in (torch.float32, torch.float64) and len(A.offsets) <= MAX_DIAGS:
+        if x.dtype == A.data.dtype:
+            return dia_power_step(A.data, x.contiguous(), None, None, A.offsets)
+        if x.is_complex() and x.real.dtype == A.data.dtype:
+            return by_parts(lambda v: dia_power_step(A.data, v, None, None, A.offsets), x)
     return A.matvec(x)
 
 

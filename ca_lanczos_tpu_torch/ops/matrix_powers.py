@@ -9,7 +9,11 @@ one generic three-term recurrence driven by the change-of-basis matrix B
 The recurrence is a Python loop over ``spmv``; on CUDA the dispatcher
 routes real DIA operators to the hand-written kernels (K1, or K2 when
 K1's halo does not fit), the interleaved carrier to K3 and a PELL
-operator to K4/K5 (s launches, each fusing its step's shifts).  Divergence
+operator to K4/K5 (s launches, each fusing its step's shifts).  The
+monomial and B-driven entry points take the DIA kernels too, and on a
+real DIA operator with real coefficients a complex q runs them on its
+real and imaginary parts (``cuda_spmv.by_parts``): the propagators'
+powers.  Complex shifts keep the plain scan.  Divergence
 from the TPU package: its ``_pallas_eligible`` also required float32, a
 non-CPU backend and a 1024-aligned n — Mosaic limits that do not exist
 here — so on CUDA a float64 DIA operator runs K1 where the TPU ran the
@@ -29,6 +33,10 @@ from ca_lanczos_tpu_torch.ops.spmv import Operator, spmv
 
 def matrix_powers_monomial(A: Operator, q: torch.Tensor, s: int) -> torch.Tensor:
     """V = [q, Aq, A^2 q, ..., A^s q] with shape (n, s+1)."""
+    if _kernel_eligible(A, q):
+        from ca_lanczos_tpu_torch.ops.cuda_spmv import matrix_powers_dia_fused
+
+        return matrix_powers_dia_fused(A, q, s)
     ws = [q]
     for _ in range(s):
         ws.append(spmv(A, ws[-1]))
@@ -98,21 +106,29 @@ def matrix_powers_from_B(A: Operator, q: torch.Tensor, B: np.ndarray) -> torch.T
     dt = _complex_dtype(q.dtype) if np.iscomplexobj(B) else q.dtype
     q = q.to(dt)
     diag, sub = _diag_sub(B, s)
+    if not np.iscomplexobj(B) and _kernel_eligible(A, q):
+        from ca_lanczos_tpu_torch.ops.cuda_spmv import matrix_powers_dia_fused
+
+        return matrix_powers_dia_fused(A, q, s, diag, sub)
     return _newton_scan(A, q, s, torch.as_tensor(diag, dtype=dt, device=q.device),
                         torch.as_tensor(sub, dtype=dt, device=q.device))
 
 
+_REAL_OF = {torch.complex64: torch.float32, torch.complex128: torch.float64}
+
+
 def _kernel_eligible(A: Operator, q: torch.Tensor) -> bool:
-    """A real DIA operator and vector of one float dtype within the
-    kernels' diagonal limit go to K1/K2 (on CPU the wrappers take their
-    plain versions, the same recurrence)."""
+    """A real f32/f64 DIA operator within the kernels' diagonal limit and
+    a vector of its dtype, or complex of its precision (run by parts), go
+    to K1/K2 (on CPU the wrappers take their plain versions, the same
+    recurrence)."""
     from ca_lanczos_tpu_torch.ops.cuda_spmv import MAX_DIAGS
     from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
 
     return (
         isinstance(A, DiaMatrix)
-        and q.dtype in (torch.float32, torch.float64)
-        and A.dtype == q.dtype
+        and A.dtype in (torch.float32, torch.float64)
+        and _REAL_OF.get(q.dtype, q.dtype) == A.dtype
         and len(A.offsets) <= MAX_DIAGS
     )
 
@@ -120,7 +136,8 @@ def _kernel_eligible(A: Operator, q: torch.Tensor) -> bool:
 def matrix_powers(A: Operator, q: torch.Tensor, s: int, Bk: Optional[np.ndarray],
                   basis: Basis) -> torch.Tensor:
     """Driver-facing dispatcher (reference: ca_lanczos.m:110-118).  Complex
-    shifts never reach a kernel."""
+    shifts never reach a kernel; complex vectors with real shifts do, on a
+    DIA operator (by parts)."""
     from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
     from ca_lanczos_tpu_torch.ops.cuda_spmv import matrix_powers_dia_fused
     from ca_lanczos_tpu_torch.ops.pell import PellMatrix, matrix_powers_pell

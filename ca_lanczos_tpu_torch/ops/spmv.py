@@ -24,6 +24,7 @@ from typing import Callable, Dict, Tuple, Union
 import numpy as np
 import torch
 
+from ca_lanczos_tpu_torch.ops.bsr import BsrMatrix
 from ca_lanczos_tpu_torch.ops.pell import PellMatrix
 
 
@@ -209,7 +210,7 @@ class DenseMatrix:
 
 # IlvDiaMatrix (ops.cuda_ilv) also satisfies this protocol (duck-typed on
 # matvec/shape/dtype/device/nnz).
-Operator = Union[DiaMatrix, EllMatrix, DenseMatrix, PellMatrix]
+Operator = Union[DiaMatrix, EllMatrix, DenseMatrix, PellMatrix, BsrMatrix]
 
 
 # Kernel for a 1-D product on a CUDA device, by operator type (module

@@ -1,7 +1,6 @@
 """Lanczos drivers and the f64 polish (``solvers.polish``).
 
-Exports what the JAX package's ``solvers`` exports from the modules the
-port has; ``sstep`` and the propagators are not ported.
+Exports what the JAX package's ``solvers`` exports.
 """
 
 from ca_lanczos_tpu_torch.solvers.lanczos import lanczos, LanczosResult
@@ -12,6 +11,17 @@ from ca_lanczos_tpu_torch.solvers.ca_lanczos import (
     monomial_basis_matrix,
     newton_shifts_bootstrap,
 )
+from ca_lanczos_tpu_torch.solvers.propagators import (
+    lanczos_prop,
+    ca_lanczos_prop,
+    propagate,
+    PropResult,
+    lanczos_prop_split,
+    propagate_split,
+    propagate_split_fused,
+    SplitPropResult,
+)
+from ca_lanczos_tpu_torch.solvers.sstep import sstep_lanczos, sstep_lanczos_prop, SstepResult
 from ca_lanczos_tpu_torch.solvers.arnoldi import arnoldi
 from ca_lanczos_tpu_torch.solvers.implicitly_restarted import (
     impl_restarted_ca_lanczos,
@@ -41,6 +51,17 @@ __all__ = [
     "RestartedResult",
     "fused_restarted_ca_lanczos",
     "FusedRestartedResult",
+    "lanczos_prop",
+    "ca_lanczos_prop",
+    "propagate",
+    "PropResult",
+    "lanczos_prop_split",
+    "propagate_split",
+    "propagate_split_fused",
+    "SplitPropResult",
+    "sstep_lanczos",
+    "sstep_lanczos_prop",
+    "SstepResult",
     "arnoldi",
     "impl_restarted_ca_lanczos",
     "IRLResult",

@@ -12,7 +12,9 @@ operators.  Recognised by their fields:
   carrier made with ``keep_dia=True``);
 * ``DiaMatrix`` — ``data``, ``offsets``;
 * ``DenseMatrix`` — ``a``;
-* ``EllMatrix`` — ``vals``, ``cols``.
+* ``BsrMatrix`` — ``vals`` (4-D tiles), ``cols``; tested before ELL, whose
+  fields it shares;
+* ``EllMatrix`` — ``vals`` (2-D), ``cols``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ca_lanczos_tpu_torch.ops.bsr import BsrMatrix
 from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
 from ca_lanczos_tpu_torch.ops.pell import PellMatrix
 from ca_lanczos_tpu_torch.ops.spmv import DenseMatrix, DiaMatrix, EllMatrix
@@ -47,6 +50,8 @@ def operator_from_numpy(A, device="cuda"):
         return IlvDiaMatrix.from_dia(dia, keep_dia=True)
     if hasattr(A, "data") and hasattr(A, "offsets"):
         return DiaMatrix(data=_t(A.data, device), offsets=tuple(int(o) for o in A.offsets))
+    if hasattr(A, "vals") and hasattr(A, "cols") and np.ndim(A.vals) == 4:
+        return BsrMatrix(vals=_t(A.vals, device), cols=_t(A.cols, device, torch.int64))
     if hasattr(A, "vals") and hasattr(A, "cols"):
         return EllMatrix(vals=_t(A.vals, device), cols=_t(A.cols, device, torch.int64))
     if hasattr(A, "a"):

@@ -2,8 +2,8 @@
 """Profile the stages of the PyTorch/CUDA port's main paths on one GPU.
 
 Run from the root of a checkout:
-``python3 chip_profile.py [--root DIR] [A] [B] [C] [D] [E] [F]`` (no
-letter: all six).  ``--root DIR`` profiles the package of another tree unpacked at DIR
+``python3 chip_profile.py [--root DIR] [A] [B] [C] [D] [E] [F] [G] [H]`` (no
+letter: all eight).  ``--root DIR`` profiles the package of another tree unpacked at DIR
 (for instance the parent commit, as for chip_compare.py), so that two
 versions are measured in one call.
 
@@ -29,6 +29,14 @@ IRL ``impl_restarted_ca_lanczos`` at max_lanczos=48), runs each stage of
 * the polish: for A, C and D the host preparation of the f64 planes (offset
   scan, scipy DIA conversion) and the device polish, profiled like the
   solve; for B (a permuted route) the host polish's wall seconds.
+
+G and H are chip_smoke.py's phases of the same names: G the time
+propagators (20 time steps of ``propagate`` lanczos and
+``propagate_split_fused`` on the 512-row ELL oscillator; 5 time steps of
+``propagate`` lanczos and ca-newton and of ``propagate_split_fused`` on
+the 4,194,304-row f64 DIA oscillator), H ``restarted_ca_lanczos`` on the
+10,485,760-row BSR and on its DIA form; each solve is timed twice
+unprofiled and once profiled as above.
 
 Host-clock seconds end with the device synchronised.  Without a CUDA
 device it exits non-zero.
@@ -154,6 +162,58 @@ def configuration(torch, label: str, a, prefer: str, driver: str = "fused",
     torch.cuda.empty_cache()
 
 
+def solves(torch, label: str, fn) -> None:
+    """fn timed twice unprofiled, then profiled (the G and H rows)."""
+    for rep in range(2):
+        _, wall = timed(torch, fn)
+        print(f"{label} unprofiled rep{rep}: {wall:.3f}s")
+    profiled(torch, label, fn, wall)
+
+
+def propagation(torch) -> None:
+    import scipy.sparse as sp
+
+    from ca_lanczos_tpu_torch.ops.formats import make_operator
+    from ca_lanczos_tpu_torch.ops.spmv import normest
+    from ca_lanczos_tpu_torch.solvers import propagators as P
+    from ca_lanczos_tpu_torch.utils.matrices import gaussian_packet, harmonic_oscillator
+
+    H, x = harmonic_oscillator(512, device=DEVICE)
+    psi = torch.as_tensor(gaussian_packet(x), dtype=torch.complex128, device=DEVICE)
+    solves(torch, "G(a) propagate lanczos x20",
+           lambda: P.propagate(H, psi, 0.025, 20, 24, "lanczos"))
+    solves(torch, "G(a) propagate_split_fused x20",
+           lambda: P.propagate_split_fused(H, psi, 0.025, 20, 24))
+    n = chip_smoke.PROP_N
+    He, xb = harmonic_oscillator(n, device="cpu")
+    rows = np.repeat(np.arange(n), He.vals.shape[1])
+    Hb, _ = make_operator(sp.csr_matrix((He.vals.numpy().ravel(),
+                                         (rows, He.cols.numpy().ravel())), (n, n)),
+                          prefer="dia", device=DEVICE)
+    dt = 0.025 * normest(H) / normest(Hb)
+    psib = torch.as_tensor(gaussian_packet(xb), dtype=torch.complex128, device=DEVICE)
+    for label, method in (("lanczos", "lanczos"), ("ca-newton", "ca")):
+        solves(torch, f"G(b) propagate {label} x5",
+               lambda: P.propagate(Hb, psib, dt, 5, 24, method, s=6))
+    solves(torch, "G(b) propagate_split_fused x5",
+           lambda: P.propagate_split_fused(Hb, psib, dt, 5, 24))
+    torch.cuda.empty_cache()
+
+
+def bsr_solves(torch) -> None:
+    from ca_lanczos_tpu_torch.config import LanczosConfig
+    from ca_lanczos_tpu_torch.solvers.restarted import restarted_ca_lanczos
+
+    A, _ = chip_smoke.bsr_operator(torch)
+    x = np.asarray(np.random.default_rng(1).standard_normal(A.n), np.float32)
+    x = torch.as_tensor(x / np.linalg.norm(x), device=DEVICE)
+    cfg = LanczosConfig(s=4, n_wanted=3, tol=1e-4, max_restarts=30)
+    for label, Op in (("BSR", A), ("DIA", A.to_dia())):
+        solves(torch, f"H {label} restarted_ca_lanczos",
+               lambda: restarted_ca_lanczos(Op, x, 16, cfg))
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--root"]:
@@ -168,7 +228,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     chip_smoke.phase0(torch)
-    which = set(args) or {"A", "B", "C", "D", "E", "F"}
+    which = set(args) or {"A", "B", "C", "D", "E", "F", "G", "H"}
     if "A" in which:
         configuration(torch, "A", chip_smoke.flagship(11010048)[0], "dia")
     if "B" in which:
@@ -184,6 +244,10 @@ def main() -> int:
     if "F" in which:
         configuration(torch, "F", chip_smoke.cluster(11010048)[0], "dia", driver="irl",
                       max_lanczos=48)
+    if "G" in which:
+        propagation(torch)
+    if "H" in which:
+        bsr_solves(torch)
     return 0
 
 

@@ -47,14 +47,64 @@ Phase F  main path F: the IRL as first rung — the same recipe with a
          max_lanczos=48, default engine; checked against the planted
          values.
 
+Phase G  the propagation workload (runLanczos.m).  (a) BASELINE's
+         configuration: ``run_propagation_experiment(n=512, dt=0.025,
+         n_steps=200, krylov_dim=24, s=6, tol=1e-10, device="cuda")``
+         (std-lanczos, ca-newton, ca-monomial on the ELL harmonic
+         oscillator) against the expm oracle (max |err| <= 1e-8 for
+         std-lanczos, 1e-6 for the CA bases: the JAX package's ca-newton
+         error here is 1.1e-7), and ``propagate_split_fused`` fixed and adaptive on
+         the same input (<= 1e-8).  (b) The same physics at n = 4,194,304 on
+         the DIA route (``make_operator(prefer="dia")`` of the oscillator's
+         CSR: 9 diagonals, the periodic wrap at +-(n-1), +-(n-2); f64 planes,
+         complex128 psi), dt = 0.025 normest(H_512)/normest(H_n): 20 time
+         steps each of ``propagate`` lanczos and ca-newton,
+         ``propagate_split`` and ``propagate_split_fused``; K2 by real and
+         imaginary parts (the wrap leaves K1 no s-step window, so
+         ``k1_plan_for`` gives "steps": the CA powers are K2 steps too).
+         Norm drift <= 1e-10, the forms agree pairwise to 1e-8 (max |dpsi| /
+         max |psi|), and 3 steps of lanczos on the kernel route equal them
+         on the plain product to 1e-12 (``PlainOp``: the operator applied
+         by ``DiaMatrix.matvec`` alone, no kernel launched); the CA powers
+         (K2 steps by parts) at the run's Newton B are held step by step
+         against the plain product (``check_powers``); ca-newton's 20 steps
+         on the plain product are printed beside lanczos and the kernel
+         route's ca-newton, or the time step where they break down.  (c) The hard-wall operator (the same 5 bands without
+         the wrap; the packet is below 1e-31 at the walls): ``propagate``
+         ca-newton, whose powers run K1 by parts, equals (b)'s ca-newton to
+         1e-8; K1 by parts at this shape and the run's own Newton B is held
+         step by step against the plain product (``check_powers``: each
+         step's residual <= 1e-12 of its scale).  (The split CA propagator
+         is left out: its Cholesky QR of the Newton basis breaks down at
+         this ||H||, in the JAX package too.)
+Phase H  BASELINE.json configs[4] on one card: exp/bsr_10m_e2e.py:59-84's
+         planted block tridiagonal (rebuilt here with numpy; nb = 1,310,720
+         block rows of 8x8, n = 10,485,760, f32, top values linspace(20,
+         25, 16)).  (a) ``restarted_ca_lanczos(A, x, 16, LanczosConfig(s=4,
+         n_wanted=3, tol=1e-4, max_restarts=30))`` on the ``BsrMatrix``
+         (gather + einsum over the tiles) and on ``A.to_dia()`` (31
+         diagonals inside +-15: K1's shared-memory fallback); each must
+         converge with top-3 relative error <= 1e-6.  (b) ``sstep_lanczos``
+         (s=4, m=3) on the DIA form in f64: its Ritz values equal full-orth
+         ``lanczos`` over 12 steps to rtol 1e-5, and its monomial powers
+         (f64 K1 at 31 diagonals) equal the plain recurrence to 1e-12 per
+         column and step (``check_powers``).  The JAX package runs this
+         configuration only through its ``parallel/`` drivers, which the
+         port has not taken over yet; here it is the single-card host
+         driver.  Phase 1 also prints K1 at this DIA shape for s in
+         {2, 4, 8, 16} (configs[4]'s sweep) beside s x one BSR matvec of
+         the port and s x one torch.sparse CSR matvec (and the BSR product
+         as one torch.bmm of one column, for comparison).
+
 Phases 2 and 3, C and D use engine="fused"; paths A-D check the label
 "restarted_ca_lanczos+polish10", E the same at the host engine, F
 "impl_restarted_ca_lanczos+polish10"; none may escalate.  Every launch
-counter is set to 0 just before each main path and read just after it; a
-kernel's ``launches`` is the sum over the main paths.  Any failed check
-raises (exit code != 0).  The line before the last is
-{"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Without a
-CUDA device, or outside a checkout, it exits non-zero and prints no result.
+counter is set to 0 just before each main path (A-F, each form of G, each
+route of H) and read just after it; a kernel's ``launches`` is the sum
+over them.  Any failed check raises (exit code != 0).  The line before the
+last is {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
+Without a CUDA device, or outside a checkout, it exits non-zero and prints
+no result.
 """
 
 import dataclasses
@@ -74,6 +124,8 @@ BOUND = {"float32": 1e-5, "float64": 1e-12}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # outside the tensor cores
 PELL_N = 11010048
+BSR_NB = 1310720  # phase H: 10,485,760 rows of 8 x 8 tiles
+PROP_N = 4194304  # phase G(b)
 
 
 def log(msg: str) -> None:
@@ -354,7 +406,8 @@ def phase1_dia(torch):
     return out
 
 
-def dia_row(torch, kname, name, n, nd, nnz, steps, nbytes, flops, kern, plain):
+def dia_row(torch, kname, name, n, nd, nnz, steps, nbytes, flops, kern, plain,
+            plain_reps=REPS, plain_batch=BATCH):
     """Check one DIA kernel against its plain version, time both and log
     the line; returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
     got, ref = kern(), plain()
@@ -367,7 +420,7 @@ def dia_row(torch, kname, name, n, nd, nnz, steps, nbytes, flops, kern, plain):
         err, abs_err = check_row(torch, kname, name, got, ref)
     del got, ref
     ms = time_ms(torch, kern)
-    plain_ms = time_ms(torch, plain)
+    plain_ms = time_ms(torch, plain, reps=plain_reps, batch=plain_batch)
     bms, by = bound_ms(nbytes, flops, name)
     log(f"kernel {kname} [{name}] n={n} nd={nd} s={steps}: rel_err={err:.3e} "
         f"(bound {BOUND[name]:.0e}) abs_err={abs_err:.3e} "
@@ -489,6 +542,93 @@ def cluster(n: int):
     return a, d[-10:][::-1].copy()
 
 
+def counted(torch, totals: dict, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after; adds the counts to ``totals``; returns (result, counts, wall s)."""
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: v for counts in counters() for k, v in counts.items()}
+    for k, v in delta.items():
+        totals[k] = totals.get(k, 0) + v
+    return out, delta, wall
+
+
+class PlainOp:
+    """An operator applied by the plain PyTorch product alone: it is no
+    ``DiaMatrix``, so neither ``spmv``'s kernel table nor the powers'
+    kernel test (``matrix_powers._kernel_eligible``) takes it."""
+
+    def __init__(self, A):
+        self.A = A
+        self.shape, self.dtype, self.device = A.shape, A.dtype, A.device
+
+    def matvec(self, x):
+        return self.A.matvec(x)
+
+
+def zero_counters() -> None:
+    for counts in counters():
+        for k in counts:
+            counts[k] = 0
+
+
+def nonzero_counts() -> dict:
+    return {k: v for counts in counters() for k, v in counts.items() if v}
+
+
+def plain_run(fn):
+    """fn() on ``PlainOp`` operators; fails if any kernel launched."""
+    zero_counters()
+    out = fn()
+    if nonzero_counts():
+        raise AssertionError(f"the plain witness launched kernels: {nonzero_counts()}")
+    return out
+
+
+def check_powers(torch, label: str, A, q, B: np.ndarray, powers,
+                 fwd_bound: float = float("inf")) -> None:
+    """``powers(A, q)`` (K1 or K2 steps; a complex q by parts) held against
+    the plain product on the same inputs.  For each step k the residual
+    V[:,k+1] - (A V[:,k] - B[k,k] V[:,k] - B[k-1,k] V[:,k-1]), the plain
+    product applied to the kernel's own columns, must be <= 1e-12 of the
+    step's scale max(|A| |V[:,k]| + |B[k,k]| |V[:,k]| + |B[k-1,k]| |V[:,k-1]|)
+    (f64), and column 0 must be q.  The forward gap to ``powers(PlainOp(A),
+    q)`` (per column, relative to its max) is printed beside it and held to
+    ``fwd_bound``: with Newton shifts at ||A|| ~ 1e10 the basis amplifies
+    the rounding of any one summation order (~1e-6 relative between two
+    orders at a few million rows), so there that gap is no measure of the
+    kernel and has no bound."""
+    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+
+    zero_counters()
+    V = powers(A, q)
+    torch.cuda.synchronize()
+    used = nonzero_counts()
+    Vp = plain_run(lambda: powers(PlainOp(A), q))
+    s = V.shape[1] - 1
+    absA = DiaMatrix(data=A.data.abs(), offsets=A.offsets)
+    res, fwd = [], []
+    for k in range(s):
+        c0, c1 = float(np.real(B[k, k])), float(np.real(B[k - 1, k])) if k else 0.0
+        prev = V[:, k - 1] if k else torch.zeros_like(q)
+        r = V[:, k + 1] - (A.matvec(V[:, k]) - c0 * V[:, k] - c1 * prev)
+        scale = absA.matvec(V[:, k].abs()) + abs(c0) * V[:, k].abs() + abs(c1) * prev.abs()
+        res.append(float(r.abs().max() / scale.max()))
+        fwd.append(float((V[:, k + 1] - Vp[:, k + 1]).abs().max() / Vp[:, k + 1].abs().max()))
+    del absA
+    log(f"{label}: kernel launches {used}; step residuals vs the plain product "
+        + " ".join(f"{x:.2e}" for x in res) + " (bound 1e-12 of each step's scale); "
+        "forward gap to the plain recurrence " + " ".join(f"{x:.2e}" for x in fwd)
+        + (f" (bound {fwd_bound:.0e})" if np.isfinite(fwd_bound) else " (no bound)"))
+    if not (used.get("dia_powers_fused", 0) + used.get("dia_power_step", 0) > 0
+            and bool((V[:, 0] == q).all()) and max(res) <= 1e-12 and max(fwd) <= fwd_bound):
+        raise AssertionError(f"{label}: launches {used}, step residuals {res}, forward {fwd}")
+
+
 def main_path(torch, label: str, a, exact, fmt: str, launched, totals: dict,
               solver: str = "restarted_ca_lanczos+polish10", max_lanczos: int = 32,
               **kw) -> dict:
@@ -500,22 +640,13 @@ def main_path(torch, label: str, a, exact, fmt: str, launched, totals: dict,
     from ca_lanczos_tpu_torch.harness.auto import solve_auto
 
     n = a.shape[0]
-    for counts in counters():
-        for k in counts:
-            counts[k] = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = solve_auto(
+    res, delta, wall = counted(torch, totals, lambda: solve_auto(
         a, np.ones(n), max_lanczos,
         LanczosConfig(n_wanted=10, s=8, tol=1e-4, max_restarts=200),
         polish=10, over_lock=3, device="cuda", **kw,
-    )
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    ))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    delta = {k: v for counts in counters() for k, v in counts.items()}
-    for k, v in delta.items():
-        totals[k] = totals.get(k, 0) + v
     got = np.sort(np.asarray(res.eigs))[::-1]
     err = (float(np.max(np.abs(got - exact))) / abs(float(exact[0])) if len(got) == 10
            else float("inf"))
@@ -545,6 +676,308 @@ def main_path(torch, label: str, a, exact, fmt: str, launched, totals: dict,
     del res, Q
     torch.cuda.empty_cache()
     return out
+
+
+def planted_block_tridiag(nb: int, bs: int = 8, seed: int = 0):
+    """exp/bsr_10m_e2e.py:59-84 in numpy: a block tridiagonal with dense
+    SPD-ish tiles whose last 2 block rows are decoupled and diagonal, so
+    the top spectrum is exactly the planted values.  Returns (vals (nb, 3,
+    bs, bs) f32, cols (nb, 3) int64, top (2 bs,) f32)."""
+    rng = np.random.default_rng(seed)
+    n = nb * bs
+    d = np.linspace(1.0, 10.0, n).astype(np.float32)
+    top = np.linspace(20.0, 25.0, 2 * bs).astype(np.float32)
+    d[-2 * bs:] = top
+    vals = np.zeros((nb, 3, bs, bs), np.float32)
+    cols = np.zeros((nb, 3), np.int64)
+    D = rng.standard_normal((nb, bs, bs)).astype(np.float32) * 0.05
+    diag_blocks = D @ np.transpose(D, (0, 2, 1))
+    ii = np.arange(bs)
+    diag_blocks[:, ii, ii] = d.reshape(nb, bs)
+    diag_blocks[-2:] = 0.0
+    diag_blocks[-2:, ii, ii] = d.reshape(nb, bs)[-2:]
+    vals[:, 0] = diag_blocks
+    C = rng.standard_normal((nb - 1, bs, bs)).astype(np.float32) * 0.1
+    C[-3:] = 0.0  # decouple the planted tail
+    vals[:-1, 1] = C
+    vals[1:, 2] = np.transpose(C, (0, 2, 1))
+    cols[:, 0] = np.arange(nb)
+    cols[:, 1] = np.minimum(np.arange(nb) + 1, nb - 1)
+    cols[:, 2] = np.maximum(np.arange(nb) - 1, 0)
+    return vals, cols, top
+
+
+def bsr_operator(torch, nb: int = BSR_NB):
+    """Phase H's matrix as a BsrMatrix on the card, and its planted top."""
+    from ca_lanczos_tpu_torch.ops.bsr import BsrMatrix
+
+    vals, cols, top = planted_block_tridiag(nb)
+    return BsrMatrix(vals=torch.as_tensor(vals, device="cuda"),
+                     cols=torch.as_tensor(cols, device="cuda")), top
+
+
+def bsr_csr(torch, A):
+    """The BSR as a torch.sparse CSR tensor on the card (the library
+    yardstick; stored tiles row by row, block columns sorted)."""
+    nb, kb, bm, bn = A.vals.shape
+    order = torch.argsort(A.cols, dim=1)
+    cols = torch.gather(A.cols, 1, order)
+    vals = A.vals[torch.arange(nb, device="cuda")[:, None], order]
+    col = (cols[:, None, :, None] * bn
+           + torch.arange(bn, device="cuda")).expand(nb, bm, kb, bn).reshape(-1)
+    crow = torch.arange(nb * bm + 1, device="cuda") * (kb * bn)
+    return torch.sparse_csr_tensor(crow, col, vals.permute(0, 2, 1, 3).reshape(-1),
+                                   size=(nb * bm, nb * bn))
+
+
+def phase1_bsr(torch):
+    """K1 at the DIA form of phase H's BSR (31 diagonals inside +-15, f32)
+    for s in {2, 4, 8, 16}, beside s x one BSR matvec of the port and s x
+    one torch.sparse CSR matvec (printed, not in the JSON line)."""
+    from ca_lanczos_tpu_torch.ops import cuda_spmv
+
+    t0 = time.perf_counter()
+    A, _ = bsr_operator(torch)
+    D = A.to_dia()
+    torch.cuda.synchronize()
+    nd, n = D.data.shape
+    nnz = A.exact_nnz()
+    log(f"BSR (phase H's matrix): n={n} tiles {tuple(A.vals.shape)} nnz={nnz}; DIA form "
+        f"nd={nd} offsets {D.offsets[0]}..{D.offsets[-1]}; built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(n), dtype=torch.float32,
+                        device="cuda")
+    x /= torch.linalg.norm(x)
+    csr = bsr_csr(torch, A)
+    y0 = A.matvec(x)
+    for name, y in (("BSR matvec", y0), ("CSR", csr @ x), ("DIA K2", cuda_spmv.dia_matvec(D, x))):
+        err = float((y - D.matvec(x)).abs().max() / D.matvec(x).abs().max())
+        if not err <= BOUND["float32"]:
+            raise AssertionError(f"{name} of the BSR disagrees with its DIA form: {err:.3e}")
+    nb, kb, bm, bn = A.vals.shape
+
+    def bmm_matvec():  # the same product as one batched GEMM of one column
+        xb = x.reshape(-1, bn, 1)[A.cols].reshape(nb * kb, bn, 1)
+        return torch.bmm(A.vals.reshape(nb * kb, bm, bn), xb).reshape(nb, kb, bm).sum(1)
+
+    bsr_ms = time_ms(torch, lambda: A.matvec(x))
+    bmm_ms = time_ms(torch, bmm_matvec)
+    csr_ms = time_ms(torch, lambda: csr @ x)
+    log(f"library at the BSR's shape: port BSR matvec (gather + einsum) "
+        f"{bsr_ms:.4f} ms, the same as one torch.bmm of one column {bmm_ms:.4f} ms, "
+        f"torch.sparse CSR f32 matvec (nnz={csr.values().numel()}) {csr_ms:.4f} ms")
+    del csr, y0
+    torch.cuda.empty_cache()
+    item = 4
+    for s in (2, 4, 8, 16):
+        plan = cuda_spmv.k1_plan_for(D.offsets, s, torch.float32)
+        coefs = newton_coefs(torch, D.data, D.offsets, x, s)
+        dia_row(torch, f"dia_powers_fused (BSR DIA, {plan.variant} tile {plan.tile})",
+                "float32", n, nd, nnz, s, (nd + 1 + s + 1) * n * item,
+                s * (2 * nnz + 4 * n),
+                lambda: cuda_spmv.dia_powers_fused(D.data, x, coefs, D.offsets, s),
+                lambda: cuda_spmv.dia_powers_fused_ref(D.data, x, coefs, D.offsets, s),
+                plain_reps=3, plain_batch=1)
+        log(f"  beside K1 at s={s}: s x BSR matvec {s * bsr_ms:.4f} ms, "
+            f"s x CSR {s * csr_ms:.4f} ms")
+    del A, D, x
+    torch.cuda.empty_cache()
+
+
+def _k12(delta: dict) -> str:
+    return f"K1 {delta['dia_powers_fused']} K2 {delta['dia_power_step']}"
+
+
+def phase_g(torch, totals: dict, n_big: int = PROP_N):
+    """The propagation workload (module docstring, phase G)."""
+    import scipy.linalg
+    import scipy.sparse as sp
+
+    from ca_lanczos_tpu_torch.harness.experiments import run_propagation_experiment
+    from ca_lanczos_tpu_torch.ops.cuda_spmv import k1_plan_for
+    from ca_lanczos_tpu_torch.ops.formats import make_operator
+    from ca_lanczos_tpu_torch.ops.matrix_powers import matrix_powers_from_B
+    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix, normest
+    from ca_lanczos_tpu_torch.solvers import propagators as P
+    from ca_lanczos_tpu_torch.utils.matrices import gaussian_packet, harmonic_oscillator
+
+    # (a) BASELINE's configuration
+    dt, steps = 0.025, 200
+    recs, delta, wall = counted(torch, totals, lambda: run_propagation_experiment(
+        n=512, dt=dt, n_steps=steps, krylov_dim=24, s=6, tol=1e-10, device="cuda"))
+    # ca-newton: over 200 steps at n = 512 the JAX package's own error is
+    # 1.1e-7 (its 1e-8 holds at 20 steps, n = 128); tests/test_torch_experiments.py
+    # holds the port to it on the CPU.
+    bounds = {"std-lanczos": 1e-8, "ca-newton": 1e-6, "ca-monomial": 1e-6}
+    for r in recs:
+        err = r.extra["max_abs_err"]
+        log(f"G(a) {r.solver}: max_abs_err={err:.3e} (bound {bounds[r.solver]:.0e}) "
+            f"wall {r.wall_s:.2f}s ({r.wall_s / steps * 1e3:.2f} ms per time step)")
+        if not err <= bounds[r.solver]:
+            raise AssertionError(f"G(a) {r.solver}: max_abs_err {err:.3e}")
+    H, x = harmonic_oscillator(512, device="cuda")
+    psi0 = torch.as_tensor(gaussian_packet(x), dtype=torch.complex128, device="cuda")
+    ref = scipy.linalg.expm(-1j * dt * steps * H.to_dense().cpu().numpy()) @ psi0.cpu().numpy()
+    for label, fn in (
+            ("fixed", lambda: (P.propagate_split_fused(H, psi0, dt, steps, 24), steps * 24)),
+            ("adaptive", lambda: P.propagate_split_fused_steps(H, psi0, dt, steps, 24, 1e-10))):
+        (psi, krylov), _, wall = counted(torch, totals, fn)
+        err = float(np.max(np.abs(psi.cpu().numpy() - ref)))
+        log(f"G(a) propagate_split_fused {label}: max_abs_err={err:.3e} (bound 1e-08) "
+            f"Krylov steps {krylov} wall {wall:.2f}s ({wall / steps * 1e3:.2f} ms per time step)")
+        if not err <= 1e-8:
+            raise AssertionError(f"G(a) propagate_split_fused {label}: max_abs_err {err:.3e}")
+
+    # (b) the same physics at n_big on the DIA route
+    t0 = time.perf_counter()
+    He, xb = harmonic_oscillator(n_big, device="cpu")
+    rows = np.repeat(np.arange(n_big), He.vals.shape[1])
+    csr = sp.csr_matrix((He.vals.numpy().ravel(), (rows, He.cols.numpy().ravel())),
+                        (n_big, n_big))
+    Hb, route = make_operator(csr, prefer="dia", device="cuda")
+    del He, csr
+    dtb = dt * normest(H) / normest(Hb)
+    psib = torch.as_tensor(gaussian_packet(xb), dtype=torch.complex128, device="cuda")
+    nrm0 = float(torch.linalg.norm(psib))
+    log(f"G(b) operator: n={n_big} route={route.format} nd={len(Hb.offsets)} "
+        f"offsets {Hb.offsets} {Hb.dtype}; dt={dtb:.6e}; K1 plan at s=6: "
+        f"{k1_plan_for(Hb.offsets, 6, Hb.dtype).variant}; built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    nb_steps = 20
+    forms = {
+        "propagate lanczos": lambda: P.propagate(Hb, psib, dtb, nb_steps, 24, "lanczos"),
+        "propagate ca-newton": lambda: P.propagate(Hb, psib, dtb, nb_steps, 24, "ca", s=6),
+        "propagate_split": lambda: P.propagate_split(Hb, psib, dtb, nb_steps, 24),
+        "propagate_split_fused": lambda: P.propagate_split_fused(Hb, psib, dtb, nb_steps, 24),
+    }
+    out = {}
+    for label, fn in forms.items():
+        psi, delta, wall = counted(torch, totals, fn)
+        drift = float(torch.linalg.norm(psi)) / nrm0 - 1.0
+        log(f"G(b) {label}: {wall / nb_steps * 1e3:.2f} ms per time step, Krylov steps "
+            f"{24 * nb_steps}, drift {drift:.3e} (bound 1e-10), launches {_k12(delta)}")
+        if not abs(drift) <= 1e-10 or not delta["dia_power_step"] > 0:
+            raise AssertionError(f"G(b) {label}: drift {drift:.3e}, launches {delta}")
+        out[label] = psi
+    scale = float(out["propagate lanczos"].abs().max())
+    names = list(out)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            d = float((out[a] - out[b]).abs().max()) / scale
+            log(f"G(b) {a} vs {b}: {d:.3e} (bound 1e-08)")
+            if not d <= 1e-8:
+                raise AssertionError(f"G(b) {a} vs {b} differ by {d:.3e}")
+    moved = float((out["propagate lanczos"] - psib).abs().max()) / scale
+    log(f"G(b) max |psi_T - psi_0| / max |psi| = {moved:.3e}")
+
+    # comparisons with the plain product (PlainOp: no kernel at all, which
+    # plain_run checks), outside counted(): not the main path's launches
+    plain = PlainOp(Hb)
+    p3 = plain_run(lambda: P.propagate(plain, psib, dtb, 3, 24, "lanczos"))
+    d = float((P.propagate(Hb, psib, dtb, 3, 24, "lanczos") - p3).abs().max() / p3.abs().max())
+    log(f"G(b) 3 lanczos steps, kernel route vs plain product: {d:.3e} (bound 1e-12)")
+    if not d <= 1e-12:
+        raise AssertionError(f"G(b) kernel route differs from the plain product: {d:.3e}")
+    # the CA powers at this shape (K2 steps by parts), step by step
+    Bk = P._newton_B(Hb, psib, 6, None)
+    check_powers(torch, "G(b) K2 steps by parts, matrix_powers_from_B (s=6, complex128)", Hb,
+                 psib / torch.linalg.norm(psib), Bk,
+                 lambda A, q: matrix_powers_from_B(A, q, Bk))
+    # ca-newton's 20 steps on the plain product, one time step a call
+    psi = psib
+    for k in range(nb_steps):
+        try:
+            psi = plain_run(lambda: P.propagate(plain, psi, dtb, 1, 24, "ca", s=6))
+        except np.linalg.LinAlgError as e:
+            log(f"G(b) propagate ca-newton on the plain product breaks down in time step "
+                f"{k + 1}: {type(e).__name__}: {e} (printed only)")
+            break
+    else:
+        d_l = float((psi - out["propagate lanczos"]).abs().max()) / scale
+        d_k = float((psi - out["propagate ca-newton"]).abs().max()) / scale
+        log(f"G(b) propagate ca-newton on the plain product: vs lanczos {d_l:.3e}, vs "
+            f"ca-newton on the kernel route {d_k:.3e} (printed only)")
+    del psi
+
+    # (c) the hard-wall operator: the CA powers run K1 (by parts)
+    keep = [i for i, o in enumerate(Hb.offsets) if abs(o) <= 2]
+    Hw = DiaMatrix(data=Hb.data[keep].contiguous(), offsets=tuple(Hb.offsets[i] for i in keep))
+    del Hb, plain
+    psi, delta, wall = counted(torch, totals, lambda: P.propagate(Hw, psib, dtb, nb_steps, 24,
+                                                                  "ca", s=6))
+    drift = float(torch.linalg.norm(psi)) / nrm0 - 1.0
+    d = float((psi - out["propagate ca-newton"]).abs().max()) / scale
+    d_l = float((psi - out["propagate lanczos"]).abs().max()) / scale
+    log(f"G(c) hard wall, propagate ca-newton: {wall / nb_steps * 1e3:.2f} ms per time step, "
+        f"drift {drift:.3e}, vs G(b) ca-newton {d:.3e} (bound 1e-08), vs G(b) lanczos "
+        f"{d_l:.3e} (printed only), launches {_k12(delta)}")
+    if not (abs(drift) <= 1e-10 and d <= 1e-8 and delta["dia_powers_fused"] > 0):
+        raise AssertionError(f"G(c): drift {drift:.3e} diff {d:.3e} {delta}")
+    # K1 by parts at this run's shape and Newton B (its first time step's)
+    Bk = P._newton_B(Hw, psib, 6, None)
+    check_powers(torch, "G(c) K1 by parts, matrix_powers_from_B (s=6, complex128)", Hw,
+                 psib / torch.linalg.norm(psib), Bk,
+                 lambda A, q: matrix_powers_from_B(A, q, Bk))
+    del Hw, out, psib, psi
+    torch.cuda.empty_cache()
+
+
+def phase_h(torch, totals: dict, nb: int = BSR_NB):
+    """BASELINE.json configs[4] on one card (module docstring, phase H)."""
+    from ca_lanczos_tpu_torch.config import LanczosConfig
+    from ca_lanczos_tpu_torch.ops.matrix_powers import matrix_powers_monomial
+    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+    from ca_lanczos_tpu_torch.solvers.lanczos import lanczos
+    from ca_lanczos_tpu_torch.solvers.restarted import restarted_ca_lanczos
+    from ca_lanczos_tpu_torch.solvers.sstep import sstep_lanczos
+
+    t0 = time.perf_counter()
+    A, top = bsr_operator(torch, nb)
+    D = A.to_dia()
+    torch.cuda.synchronize()
+    n = A.n
+    log(f"H operator: n={n} BSR {tuple(A.vals.shape)} "
+        f"({A.vals.numel() * 4 / 1e9:.2f} GB), DIA nd={len(D.offsets)} "
+        f"({D.data.numel() * 4 / 1e9:.2f} GB); built in {time.perf_counter() - t0:.1f}s")
+    x = np.asarray(np.random.default_rng(1).standard_normal(n), np.float32)
+    x /= np.linalg.norm(x)
+    want = np.sort(top.astype(np.float64))[::-1][:3]
+    cfg = LanczosConfig(s=4, n_wanted=3, tol=1e-4, max_restarts=30)
+    for label, Op in (("BSR (gather)", A), ("DIA (K1)", D)):
+        torch.cuda.reset_peak_memory_stats()
+        res, delta, wall = counted(torch, totals, lambda: restarted_ca_lanczos(
+            Op, torch.as_tensor(x, device="cuda"), 16, cfg))
+        got = np.sort(np.asarray(res.eigs, np.float64))[::-1][:3]
+        err = (float(np.max(np.abs(got - want)) / want[0]) if len(got) == 3
+               else float("inf"))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"H(a) restarted_ca_lanczos on {label}: converged={res.converged} "
+            f"restarts={res.n_restarts} top3_rel_err={err:.3e} (bound 1e-6) solve {wall:.2f}s "
+            f"peak {peak:.2f} GiB launches {_k12(delta)}")
+        if not (res.converged and err <= 1e-6):
+            raise AssertionError(f"H(a) {label}: converged={res.converged} err={err:.3e}")
+        if Op is D and not delta["dia_powers_fused"] > 0:
+            raise AssertionError("H(a): K1 not launched on the DIA route")
+        del res
+    del A
+    D64 = DiaMatrix(data=D.data.double(), offsets=D.offsets)
+    del D
+    r = torch.as_tensor(x, dtype=torch.float64, device="cuda")
+    (rs, rl), delta, wall = counted(torch, totals, lambda: (
+        sstep_lanczos(D64, r, 4, 3), lanczos(D64, r, 12, orth="full")))
+    ds = np.sort(np.linalg.eigvals(rs.T).real)
+    dl = np.sort(np.linalg.eigvalsh(rl.T))
+    rel = float(np.max(np.abs(ds - dl) / np.abs(dl)))
+    log(f"H(b) sstep_lanczos (s=4, m=3, f64 DIA) vs full-orth lanczos(12): Ritz rel diff "
+        f"{rel:.3e} (bound 1e-5); both {wall:.2f}s; top Ritz {ds[-3:]}; launches {_k12(delta)}")
+    if not np.allclose(ds, dl, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"H(b) Ritz values differ: {rel:.3e}")
+    # sstep's monomial powers at this shape (f64, 31 diagonals), from its p1
+    p1 = r / torch.linalg.norm(r)
+    check_powers(torch, "H(b) f64 monomial powers, matrix_powers_monomial (s=4)", D64, p1,
+                 np.zeros((5, 4)), lambda A, q: matrix_powers_monomial(A, q, 4), fwd_bound=1e-12)
+    del D64, r, rs, rl
+    torch.cuda.empty_cache()
 
 
 def phase(torch, name: str, fn):
@@ -581,6 +1014,7 @@ def main() -> int:
     log(f"PELL oracle matrix: n={PELL_N} nnz={a32.nnz} built in "
         f"{time.perf_counter() - t0:.1f}s (from the start of phase 1)")
     rows += phase1_pell(torch, a32)
+    phase1_bsr(torch)
     log(f"phase 1 (kernels vs plain): {time.perf_counter() - t0:.1f}s")
 
     totals: dict = {}
@@ -617,6 +1051,8 @@ def main() -> int:
         log(f"paths side by side: {label}: restarts={p['restarts']} "
             + " ".join(f"{k}={v:.2f}s" for k, v in p["stages"].items())
             + f" total={p['total']:.2f}s peak={p['peak']:.2f} GiB eig_rel_err={p['err']:.3e}")
+    phase(torch, "phase G", lambda: phase_g(torch, totals))
+    phase(torch, "phase H", lambda: phase_h(torch, totals))
 
     for row in rows:
         row["launches"] = totals.get(row["name"], 0)

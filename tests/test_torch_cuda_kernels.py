@@ -285,3 +285,61 @@ def test_k1_matches_plain(cuda, case, dtype):
     Vr, lr = cuda_spmv.dia_powers_fused_ref(D, X, c, offsets, s)
     assert _rel(V, Vr) <= BOUND[dtype] and _rel(last, lr) <= BOUND[dtype]
     torch.cuda.synchronize()
+
+
+# Complex vectors on real planes run K2/K1 on their real and imaginary
+# parts (cuda_spmv.by_parts): two launches where a real vector takes one.
+def _periodic(n):
+    return (-(n - 1), -(n - 2), -2, -1, 0, 1, 2, n - 2, n - 1)
+
+
+def _complex_operands(n, offsets, dtype, device, seed):
+    D, X = _operands(n, offsets, dtype, device, seed)
+    for d, k in enumerate(offsets):  # zero where the column is out of range
+        if k > 0:
+            D[d, n - k:] = 0
+        elif k < 0:
+            D[d, :-k] = 0
+    Y = _operands(n, offsets, dtype, device, seed + 1)[1]
+    return DiaMatrix(data=D, offsets=offsets), torch.complex(X, Y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("band", ["tri", "periodic"])
+def test_k2_on_complex_vectors(cuda, dtype, band):
+    n = 100_003
+    offsets = (-1, 0, 1) if band == "tri" else _periodic(n)
+    A, Z = _complex_operands(n, offsets, dtype, cuda, seed=13)
+    before = cuda_spmv.LAUNCHES["dia_power_step"]
+    y = spmv(A, Z)
+    assert cuda_spmv.LAUNCHES["dia_power_step"] == before + 2
+    assert y.dtype == Z.dtype
+    ref = A.matvec(Z)
+    assert _rel(torch.view_as_real(y).T, torch.view_as_real(ref).T) <= BOUND[dtype]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["newton", "monomial", "steps"])
+def test_k1_on_a_complex_q(cuda, dtype, kind):
+    from ca_lanczos_tpu_torch.ops import matrix_powers as mp
+
+    n, s = 200_003, 6
+    offsets = _periodic(n) if kind == "steps" else tuple(range(-4, 5))
+    A, Z = _complex_operands(n, offsets, dtype, cuda, seed=14)
+    B = np.eye(s + 1)[:, 1:]
+    if kind != "monomial":
+        B[np.arange(s), np.arange(s)] = np.linspace(-0.3, 0.3, s)
+        B[np.arange(s - 1), np.arange(1, s)] = 0.01
+    before = dict(cuda_spmv.LAUNCHES)
+    V = (mp.matrix_powers_monomial(A, Z, s) if kind == "monomial"
+         else mp.matrix_powers_from_B(A, Z, B))
+    fused = cuda_spmv.LAUNCHES["dia_powers_fused"] - before["dia_powers_fused"]
+    steps = cuda_spmv.LAUNCHES["dia_power_step"] - before["dia_power_step"]
+    assert (fused, steps) == ((0, 2 * s) if kind == "steps" else (2, 0))
+    diag, sub = mp._diag_sub(B, s)
+    Vr, _ = cuda_spmv.three_term_ref(A.matvec, Z, np.stack([diag, sub], 1), s)
+    got = V[:, 1:].T
+    assert _rel(torch.view_as_real(got).transpose(1, 2),
+                torch.view_as_real(Vr).transpose(1, 2)) <= BOUND[dtype]
+    torch.cuda.synchronize()
