@@ -1,5 +1,7 @@
-"""Solver-selection probe (counterpart of
-``ca_lanczos_tpu/harness/matrix_info.py``; reference get_matrix_info.m)."""
+"""Corpus metadata and the solver-selection probe (counterpart of
+``ca_lanczos_tpu/harness/matrix_info.py``; reference get_matrix_info.m,
+which writes size / condest / normest / extreme eigenvalues for the
+105-matrix corpus)."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ import numpy as np
 import torch
 
 from ca_lanczos_tpu_torch.config import Orth
-from ca_lanczos_tpu_torch.ops.spmv import Operator
+from ca_lanczos_tpu_torch.ops.spmv import Operator, normest
 from ca_lanczos_tpu_torch.solvers.lanczos import lanczos
 
 
@@ -48,3 +50,21 @@ def recommend_solver(
         "min_rel_gap": min_gap,
         "top_ritz": top,
     }
+
+
+def matrix_info(A: Operator, name: str = "", dense_cutoff: int = 2000) -> Dict[str, Any]:
+    """Size, nnz, 2-norm estimate and extreme eigenvalues.
+
+    Small operators (n <= dense_cutoff) get exact dense eigenvalues (in
+    the operator's dtype, on the host) and condition number; large ones
+    get the power-iteration norm estimate only (matching
+    get_matrix_info.m's normest/eigs usage)."""
+    n = A.shape[0]
+    info: Dict[str, Any] = {"name": name, "n": n, "nnz": int(A.nnz), "normest": float(normest(A))}
+    if n <= dense_cutoff:
+        d = np.linalg.eigvalsh(A.to_dense().cpu().numpy())
+        info["eig_max"] = float(d[-1])
+        info["eig_min"] = float(d[0])
+        nonzero = np.abs(d)[np.abs(d) > 0]
+        info["cond"] = float(np.abs(d).max() / nonzero.min()) if nonzero.size else np.inf
+    return info

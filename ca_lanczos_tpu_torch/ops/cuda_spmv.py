@@ -337,6 +337,15 @@ def matrix_powers_dia_fused(A, q: torch.Tensor, s: int, diag=None, sub=None) -> 
     return torch.cat([q[:, None], V.T], dim=1)
 
 
+def matrix_powers_dia_pallas(A, q: torch.Tensor, s: int, diag=None, sub=None,
+                             tile: int = 65536) -> torch.Tensor:
+    """The JAX package's public name for the DIA matrix powers, bound to
+    :func:`matrix_powers_dia_fused` (K1, or K2 steps).  ``tile`` is
+    accepted and ignored: it sized the Pallas grid; :func:`k1_plan`
+    picks K1's tile here."""
+    return matrix_powers_dia_fused(A, q, s, diag, sub)
+
+
 def dia_matvec(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     """``spmv`` of a DiaMatrix and a vector on CUDA: one K2 launch with
     zero coefficients when x is f32/f64 of the planes' dtype, two (its

@@ -1,7 +1,8 @@
-"""Test fixtures, diagnostics, checkpoints and carry-across helpers.
+"""Test fixtures, diagnostics, checkpoints, Matrix Market I/O, RCM
+reordering, profiling and debug checks.
 
-Exports what the JAX package's ``utils`` exports from the modules the port
-has (``matrices``, ``diagnostics``, ``checkpoint``).
+Exports what the JAX package's ``utils`` exports, except
+``cross_device_consistency``, which waits for the port of ``parallel/``.
 """
 
 from ca_lanczos_tpu_torch.utils.matrices import (
@@ -18,6 +19,15 @@ from ca_lanczos_tpu_torch.utils.diagnostics import (
     OmegaRecurrence,
 )
 from ca_lanczos_tpu_torch.utils.checkpoint import RestartCheckpoint
+from ca_lanczos_tpu_torch.utils.debug import assert_finite, check_deterministic
+from ca_lanczos_tpu_torch.utils.mmio import load_mtx, load_operator, save_mtx
+from ca_lanczos_tpu_torch.utils.profiling import (
+    RooflineReport,
+    measure_ca_iteration_throughput,
+    measure_powers_throughput,
+    roofline_audit,
+)
+from ca_lanczos_tpu_torch.utils.reorder import Reordering, rcm_reorder
 
 __all__ = [
     "diag_spectrum",
@@ -30,4 +40,15 @@ __all__ = [
     "orth_error_block",
     "OmegaRecurrence",
     "RestartCheckpoint",
+    "assert_finite",
+    "check_deterministic",
+    "load_mtx",
+    "load_operator",
+    "save_mtx",
+    "RooflineReport",
+    "measure_ca_iteration_throughput",
+    "measure_powers_throughput",
+    "roofline_audit",
+    "Reordering",
+    "rcm_reorder",
 ]

@@ -5,8 +5,8 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 Phase 0  the card (nvidia-smi name and power limit), TF32 off; the CUDA
          kernels of ``ca_lanczos_tpu_torch/csrc`` (one nvcc per source, all
-         started together) and the native PELL encoder (g++) built into
-         build/.
+         started together), the native PELL encoder and the native
+         Matrix Market parser (g++) built into build/.
 Phase 1  each kernel against its plain PyTorch version on the card, f32 and
          f64: max error relative to max|plain| per vector (bounds 1e-5 f32,
          1e-12 f64; the sums run in another order), CUDA-event times (the
@@ -95,14 +95,53 @@ Phase H  BASELINE.json configs[4] on one card: exp/bsr_10m_e2e.py:59-84's
          {2, 4, 8, 16} (configs[4]'s sweep) beside s x one BSR matvec of
          the port and s x one torch.sparse CSR matvec (and the BSR product
          as one torch.bmm of one column, for comparison).
+Phase I  the file-in entry.  (a) Phase 3's matrix in float64
+         (``flagship(4194304)``) written with the port's ``save_mtx(...,
+         symmetric=True)`` (8,388,607 stored entries) into a temporary
+         directory (TMPDIR; deleted at the end of the phase), read back by
+         ``load_mtx`` alone and timed (the native parser must do it: the
+         Python fallback's warning fails the run), then solved through the
+         CLI in-process, so that the launch counters see its kernels:
+         ``__main__.main(["solve", "--mtx", path, "--n-wanted", "10", "--s",
+         "8", "--max-lanczos", "32", "--tol", "1e-4", "--polish", "10",
+         "--over-lock", "3", "--engine", "fused", "--out", rec])``.  The
+         record must read n = 4,194,304, nnz = 12,582,910, format "dia"
+         (an f64 source stays DIA), not reordered, solver
+         "restarted_ca_lanczos+polish10", not escalated, converged, with K1
+         and K2 launched and max |eig - oracle| / 100 <= 1e-8 over the top
+         10 (exp/flagship_10m_oracle_4194304.npz; ||A|| = 100).  K1 (s=8,
+         Newton coefficients) and K2 at the solve's shape (the file's f64
+         planes) are held against their plain versions (1e-12) and timed.
+         One ``python -m ca_lanczos_tpu_torch info --mtx`` subprocess on a
+         500-row file must exit 0 with one JSON record.  (b) The 23 members
+         of ``build_corpus(small=False)`` through ``solve_auto(A, r, 60,
+         LanczosConfig(s=6, orth=Orth.FULL, n_wanted=10, tol=1e-8,
+         max_restarts=100))`` (exp/corpus_routed.py's settings; r =
+         default_rng(0).random(n)): each converges, its top-10
+         nearest-eigenvalue error <= 1e-6 of max |exact top|.  Before each
+         DIA member's solve, K1 (s=6, the member's own Newton coefficients;
+         unless its plan is K2 steps) and K2 on its planes are held against
+         their plain versions (f64 1e-12): n <= 1000 with smem halos up to
+         600 rows, the edges of the staging.  (c) On
+         bench.py's operator: ``measure_powers_throughput(A, s=8)`` (a K2
+         chain) and ``roofline_audit`` of its rate (fraction_of_peak <=
+         1.05: the unfused step's model is a lower bound on its bytes),
+         ``measure_ca_iteration_throughput`` for "roll" (K1), "ilv" and
+         "ilv_rm" (K3), printed beside phase 1's times; then ``python -m
+         ca_lanczos_tpu_torch.bench`` as a subprocess: its last line must be
+         one JSON object with bench.py's keys and a value > 0, and its K1
+         rate is held against phase 1's K1 bound for the same bytes (K1
+         reads the planes once per s steps, so the per-step model is no
+         bound for it).
 
 Phases 2 and 3, C and D use engine="fused"; paths A-D check the label
 "restarted_ca_lanczos+polish10", E the same at the host engine, F
 "impl_restarted_ca_lanczos+polish10"; none may escalate.  Every launch
 counter is set to 0 just before each main path (A-F, each form of G, each
-route of H) and read just after it; a kernel's ``launches`` is the sum
-over them.  Any failed check raises (exit code != 0).  The line before the
-last is {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
+route of H, the CLI solve, each corpus member and each profiling chain of
+I) and read just after it; a kernel's ``launches`` is the sum over them.
+Any failed check raises (exit code != 0).  The line before the last is
+{"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
 no result.
 """
@@ -126,6 +165,7 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # outside the tensor cores
 PELL_N = 11010048
 BSR_NB = 1310720  # phase H: 10,485,760 rows of 8 x 8 tiles
 PROP_N = 4194304  # phase G(b)
+FILE_N = 4194304  # phase I(a): the .mtx file
 
 
 def log(msg: str) -> None:
@@ -194,8 +234,11 @@ def phase0(torch):
         cuda_spmv,
     )
 
+    from ca_lanczos_tpu_torch.utils import mmio
+
     builds = {"dia_powers": cuda_spmv._lib, "ilv_powers": cuda_ilv._lib,
-              "pell": cuda_pell._lib, "pell_encode (g++)": _pell_native.available}
+              "pell": cuda_pell._lib, "pell_encode (g++)": _pell_native.available,
+              "mmio (g++)": mmio.native_available}
 
     def build(item):
         t0 = time.perf_counter()
@@ -205,9 +248,9 @@ def phase0(torch):
     with ThreadPoolExecutor(len(builds)) as pool:
         done = list(pool.map(build, builds.items()))
     for name, out, secs in done:
-        if name == "pell_encode (g++)":
+        if name.endswith("(g++)"):
             if not out:
-                raise AssertionError("the native PELL encoder did not build or load")
+                raise AssertionError(f"the native {name} did not build or load")
             log(f"build {name}: {secs:.1f}s")
             continue
         log(f"build {name}: {secs:.1f}s -> {_cuda_build.library_path(name).name}")
@@ -278,19 +321,19 @@ def bench_operator():
     return data, offsets, x, vprev
 
 
-def path_a_operator():
+def path_a_operator(n: int = 11010048, dtype=np.float32):
     """Main path A's matrix as DIA planes (exp/flagship_10m.py:47-53 at
     11,010,048 rows: the planted-top tridiagonal, the same numbers as
-    :func:`flagship`), f32, and a random unit x (numpy)."""
-    n = 11010048
+    :func:`flagship`), f32, and a random unit x (numpy); phase I(a)'s file
+    matrix at ``n`` = 4,194,304 in f64."""
     d = np.linspace(1.0, 90.0, n)
     d[-10:] = np.linspace(95.0, 100.0, 10)
     off = np.random.default_rng(0).standard_normal(n) * 1e-3
-    data = np.zeros((3, n), np.float32)
+    data = np.zeros((3, n), dtype)
     data[0, 1:] = off[:-1]  # A[i, i-1]
     data[1] = d
     data[2, :-1] = off[:-1]  # A[i, i+1]
-    x = np.asarray(np.random.default_rng(1).standard_normal(n), np.float32)
+    x = np.asarray(np.random.default_rng(1).standard_normal(n), dtype)
     x /= np.linalg.norm(x)
     return data, (-1, 0, 1), x
 
@@ -310,6 +353,35 @@ def newton_coefs(torch, data, offsets, x, s):
     coefs[:, 0] = np.diagonal(Bk)[:s]
     coefs[1:, 1] = np.diagonal(Bk, 1)[: s - 1]
     return coefs
+
+
+def check_dia_operator(torch, A, x, s: int) -> str:
+    """K1 (when its plan is not K2 steps) and K2 on a path's own DiaMatrix
+    ``A`` against their plain versions, with A's own Newton coefficients
+    (``newton_coefs`` from x) and a random v_prev: :func:`check_row` at
+    A's dtype bound (f64 1e-12).  Returns a log fragment; raises on a
+    mismatch."""
+    from ca_lanczos_tpu_torch.ops import cuda_spmv
+
+    D, offsets = A.data, tuple(A.offsets)
+    dt = str(D.dtype).split(".")[-1]
+    X = torch.as_tensor(x, dtype=D.dtype, device="cuda")
+    X = X / torch.linalg.norm(X)
+    P = torch.as_tensor(np.random.default_rng(2).standard_normal(X.shape[0]), dtype=D.dtype,
+                        device="cuda")
+    coefs = newton_coefs(torch, D, offsets, x, s)
+    plan = cuda_spmv.k1_plan_for(offsets, s, D.dtype).variant
+    errs = []
+    if plan != "steps":
+        got = cuda_spmv.dia_powers_fused(D, X, coefs, offsets, s)
+        ref = cuda_spmv.dia_powers_fused_ref(D, X, coefs, offsets, s)
+        errs += [check_row(torch, f"dia_powers_fused ({plan})", dt, g, r)[0]
+                 for g, r in zip(got, ref)]
+    got = cuda_spmv.dia_power_step(D, X, P, coefs[1], offsets)
+    errs.append(check_row(torch, "dia_power_step", dt, got,
+                          cuda_spmv.dia_power_step_ref(D, X, P, coefs[1], offsets))[0])
+    k1 = "K1 not launched (plan: K2 steps)" if plan == "steps" else f"K1 {plan} s={s} +"
+    return f"{k1} K2 vs plain {max(errs):.1e} (bound {BOUND[dt]:.0e})"
 
 
 def phase1_dia(torch):
@@ -980,6 +1052,182 @@ def phase_h(torch, totals: dict, nb: int = BSR_NB):
     torch.cuda.empty_cache()
 
 
+def phase_i(torch, totals: dict, rows: list, n_file: int = FILE_N) -> None:
+    """The file-in entry, the corpus and the profiling tools (module
+    docstring, phase I); ``rows`` are phase 1's f32 kernel rows."""
+    import tempfile
+    import warnings
+
+    import scipy.sparse as sp
+
+    from ca_lanczos_tpu_torch import __main__ as cli
+    from ca_lanczos_tpu_torch.config import LanczosConfig, Orth
+    from ca_lanczos_tpu_torch.harness.auto import solve_auto
+    from ca_lanczos_tpu_torch.harness.corpus import build_corpus
+    from ca_lanczos_tpu_torch.ops import cuda_spmv
+    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+    from ca_lanczos_tpu_torch.utils import mmio, profiling
+
+    # (a) the file path at full size, in a temporary directory (never under
+    # build/, which travels with copies of the checkout)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        a, exact = flagship(n_file)
+        path = os.path.join(tmp, f"flagship_{n_file}.mtx")
+        t0 = time.perf_counter()
+        mmio.save_mtx(path, a, symmetric=True)
+        t_write = time.perf_counter() - t0
+        del a
+        with open(path) as f:
+            f.readline()
+            stored = int(f.readline().split()[2])  # the lower triangle
+        if not mmio.native_available():
+            raise AssertionError("I(a): the native Matrix Market parser did not build")
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)  # the Python fallback warns
+            ri, ci, vi, shape = mmio.load_mtx(path)
+        t_parse = time.perf_counter() - t0
+        log(f"I(a) save_mtx (symmetric) {n_file} rows: {stored} stored entries, "
+            f"{os.path.getsize(path) / 1e9:.3f} GB in {t_write:.2f}s; native load_mtx "
+            f"{len(vi)} entries in {t_parse:.2f}s")
+        if stored != 2 * n_file - 1 or shape != (n_file, n_file) or len(vi) != 3 * n_file - 2:
+            raise AssertionError(f"I(a): {stored} stored, parsed {shape}, {len(vi)} entries")
+        del ri, ci, vi
+        rec_path = os.path.join(tmp, "solve.json")
+        argv = ["solve", "--mtx", path, "--n-wanted", "10", "--s", "8", "--max-lanczos", "32",
+                "--tol", "1e-4", "--polish", "10", "--over-lock", "3", "--engine", "fused",
+                "--out", rec_path]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rc, delta, wall = counted(torch, totals, lambda: cli.main(argv))
+        rec = json.loads(open(rec_path).read())
+        got = np.asarray(rec["eigs"])
+        err = (float(np.max(np.abs(got - exact))) / abs(float(exact[0])) if len(got) == 10
+               else float("inf"))
+        log(f"I(a) python -m ca_lanczos_tpu_torch solve --mtx (in-process): rc={rc} "
+            f"n={rec['n']} nnz={rec['nnz']} format={rec['format']} "
+            f"reordered={rec['reordered']} solver={rec['solver']} escalated={rec['escalated']} "
+            f"converged={rec['converged']} n_restarts={rec['n_restarts']} "
+            f"eig_rel_err={err:.3e} (bound 1e-8) wall {wall:.2f}s launches {_k12(delta)}")
+        fallback = [str(w.message) for w in caught if "pure-Python fallback" in str(w.message)]
+        checks = {
+            "rc == 0": rc == 0,
+            f"n == {n_file}": rec["n"] == n_file,
+            f"nnz == {3 * n_file - 2}": rec["nnz"] == 3 * n_file - 2,
+            "format == 'dia'": rec["format"] == "dia",
+            "not reordered": rec["reordered"] is False,
+            "solver label": rec["solver"] == "restarted_ca_lanczos+polish10",
+            "not escalated": rec["escalated"] is False,
+            "converged": rec["converged"] is True,
+            "eig_rel_err <= 1e-8": err <= 1e-8,
+            "K1 launched": delta["dia_powers_fused"] > 0,
+            "K2 launched": delta["dia_power_step"] > 0,
+            "native parse": not fallback,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"I(a) failed: {failed} {fallback}")
+        # K1 and K2 at the solve's shape (the file's planes, f64, s = 8)
+        # against their plain versions; these launches are not the path's
+        data, offsets, x = path_a_operator(n_file, np.float64)
+        nd, nnz = len(offsets), sum(n_file - abs(o) for o in offsets)
+        coefs = newton_coefs(torch, data, offsets, x, 8)
+        D, X = torch.as_tensor(data, device="cuda"), torch.as_tensor(x, device="cuda")
+        P = torch.roll(X, 1)
+        del data
+        dia_row(torch, "dia_powers_fused (I(a))", "float64", n_file, nd, nnz, 8,
+                (nd + 1 + 8 + 1) * n_file * 8, 8 * (2 * nnz + 4 * n_file),
+                lambda: cuda_spmv.dia_powers_fused(D, X, coefs, offsets, 8),
+                lambda: cuda_spmv.dia_powers_fused_ref(D, X, coefs, offsets, 8))
+        dia_row(torch, "dia_power_step (I(a))", "float64", n_file, nd, nnz, 1,
+                (nd + 3) * n_file * 8, 2 * nnz + 4 * n_file,
+                lambda: cuda_spmv.dia_power_step(D, X, P, coefs[1], offsets),
+                lambda: cuda_spmv.dia_power_step_ref(D, X, P, coefs[1], offsets))
+        del D, X, P
+        # the module entry, as a user starts it
+        small = os.path.join(tmp, "small.mtx")
+        mmio.save_mtx(small, sp.diags([np.full(499, -1.0), np.linspace(1.0, 9.0, 500),
+                                       np.full(499, -1.0)], [-1, 0, 1]), symmetric=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ca_lanczos_tpu_torch", "info", "--mtx",
+                               small], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        log(f"I(a) python -m ca_lanczos_tpu_torch info --mtx {os.path.basename(small)}: "
+            f"rc={proc.returncode} in {time.perf_counter() - t0:.1f}s: {' | '.join(lines)}")
+        if proc.returncode != 0 or len(lines) != 1 or json.loads(lines[0])["n"] != 500:
+            raise AssertionError(f"I(a) info subprocess failed: {proc.stderr[-2000:]}")
+
+    # (b) the corpus on the card at exp/corpus_routed.py's settings
+    t0 = time.perf_counter()
+    corpus = build_corpus(small=False, device="cuda")
+    log(f"I(b) build_corpus(small=False): {len(corpus)} members in "
+        f"{time.perf_counter() - t0:.1f}s")
+    cfg = LanczosConfig(s=6, orth=Orth.FULL, n_wanted=10, tol=1e-8, max_restarts=100)
+    bad = []
+    for name, (A, exact) in corpus.items():
+        r = np.random.default_rng(0).random(A.shape[0])
+        # the kernels at this member's shape, before (not in) its counted solve
+        note = check_dia_operator(torch, A, r, cfg.s) if isinstance(A, DiaMatrix) else ""
+        res, delta, wall = counted(torch, totals, lambda: solve_auto(A, r, 60, cfg))
+        got = np.sort(np.asarray(res.eigs, np.float64))[::-1][:10]
+        scale = float(np.max(np.abs(np.sort(exact)[::-1][:10])))
+        err = (max(float(np.min(np.abs(exact - g))) for g in got) / scale if len(got) == 10
+               else float("inf"))
+        log(f"I(b) {name:20s} {type(A).__name__:9s} n={A.shape[0]:5d} {res.solver:40s} "
+            f"restarts={res.n_restarts:3d} err={err:.2e} (bound 1e-6) {wall:.2f}s "
+            f"launches {_k12(delta)} {note}")
+        if not (res.converged and err <= 1e-6):
+            bad.append((name, res.converged, err))
+    if bad:
+        raise AssertionError(f"I(b) corpus members failed: {bad}")
+    del corpus
+
+    # (c) the profiling tools on bench.py's operator
+    data, offsets, _, _ = bench_operator()
+    A = DiaMatrix(data=torch.as_tensor(data, device="cuda"), offsets=offsets)
+    nd, n = data.shape
+    rate, delta, _ = counted(torch, totals, lambda: profiling.measure_powers_throughput(A, s=8))
+    rep = profiling.roofline_audit(A, rate)
+    by = {row["name"]: row for row in rows}
+    log(f"I(c) measure_powers_throughput (K2 chain, s=8): {rate / 1e9:.1f} Gnnz/s = "
+        f"{n * nd / rate * 1e3:.4f} ms a step (phase 1's K2: "
+        f"{by['dia_power_step']['ms']:.4f} ms), launches {_k12(delta)}; roofline_audit: "
+        f"{rep.bytes_per_step} B/step, speed of light {rep.sol_nnz_per_s / 1e9:.1f} Gnnz/s, "
+        f"fraction_of_peak {rep.fraction_of_peak:.3f} (bound 1.05)")
+    if not (delta["dia_power_step"] > 0 and rep.fraction_of_peak <= 1.05):
+        raise AssertionError(f"I(c) K2 chain: {rep.fraction_of_peak}, {delta}")
+    for kernel, kname in (("roll", "dia_powers_fused"), ("ilv", "dia_powers_ilv"),
+                          ("ilv_rm", "dia_powers_ilv")):
+        it, delta, _ = counted(torch, totals, lambda: profiling.measure_ca_iteration_throughput(
+            A, s=8, kernel=kernel))
+        log(f"I(c) measure_ca_iteration_throughput({kernel!r}, s=8): {it:.1f} CA iterations/s "
+            f"= {1e3 / it:.4f} ms an iteration (phase 1's {kname}: {by[kname]['ms']:.4f} ms "
+            f"a call), launches {({k: v for k, v in delta.items() if v})}")
+        if not it > 0 or not delta[kname] > 0:
+            raise AssertionError(f"I(c) {kernel}: {it} {delta}")
+    del A
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ca_lanczos_tpu_torch.bench"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    log(f"I(c) python -m ca_lanczos_tpu_torch.bench: rc={proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f}s: {' | '.join(lines)}")
+    line = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    keys = {"metric", "value", "unit", "vs_baseline", "spread_min", "spread_max", "trials",
+            "path"}
+    if set(line) != keys or not line["value"] > 0 or line["path"] != "cuda-dia-fused":
+        raise AssertionError(f"I(c) bench line: {line} {proc.stderr[-2000:]}")
+    # K1 reads the planes once per s steps: hold its figure against phase
+    # 1's K1 bound for the same bytes, not the per-step roofline model
+    nnz = sum(n - abs(o) for o in offsets)
+    k1_ms = nnz * 8 / (line["value"] * 1e9) * 1e3
+    k1 = by["dia_powers_fused"]
+    log(f"I(c) bench K1: {line['value']} Gnnz/s = {k1_ms:.4f} ms a call (phase 1: "
+        f"{k1['ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms; {k1['bound_ms'] / k1_ms:.0%} of it)")
+    check_bound("dia_powers_fused (bench)", "float32", k1_ms, k1["bound_ms"])
+
+
 def phase(torch, name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1053,6 +1301,7 @@ def main() -> int:
             + f" total={p['total']:.2f}s peak={p['peak']:.2f} GiB eig_rel_err={p['err']:.3e}")
     phase(torch, "phase G", lambda: phase_g(torch, totals))
     phase(torch, "phase H", lambda: phase_h(torch, totals))
+    phase(torch, "phase I", lambda: phase_i(torch, totals, rows))
 
     for row in rows:
         row["launches"] = totals.get(row["name"], 0)

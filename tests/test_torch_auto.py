@@ -11,6 +11,7 @@ Eigenvalues: rtol 1e-10 against JAX and against the exact eigenvalues of
 the matrix the polish sees (the f32-rounded one for f32 input); the
 smallest end is 1e-7 against the exact values (see its test)."""
 
+import importlib
 import os
 import subprocess
 import sys
@@ -309,8 +310,11 @@ def test_polish_needs_f64_source():
 
 
 def _entry_points():
-    from ca_lanczos_tpu_torch.ops import formats, spmv
+    from ca_lanczos_tpu_torch.ops import formats
     from ca_lanczos_tpu_torch.utils import matrices
+
+    # the ops package exports the function spmv, which hides the module
+    spmv = importlib.import_module("ca_lanczos_tpu_torch.ops.spmv")
 
     band = _op(3000)
     return {
@@ -363,7 +367,10 @@ def test_port_never_imports_jax():
             "ca_lanczos_tpu_torch.solvers.ca_lanczos, ca_lanczos_tpu_torch.solvers.restarted, "
             "ca_lanczos_tpu_torch.solvers.arnoldi, ca_lanczos_tpu_torch.solvers.implicitly_restarted, "
             "ca_lanczos_tpu_torch.utils, ca_lanczos_tpu_torch.utils.diagnostics, "
-            "ca_lanczos_tpu_torch.utils.checkpoint, "
+            "ca_lanczos_tpu_torch.utils.checkpoint, ca_lanczos_tpu_torch.utils.mmio, "
+            "ca_lanczos_tpu_torch.utils.reorder, ca_lanczos_tpu_torch.utils.profiling, "
+            "ca_lanczos_tpu_torch.utils.debug, ca_lanczos_tpu_torch.harness.corpus, "
+            "ca_lanczos_tpu_torch.__main__, ca_lanczos_tpu_torch.bench, "
             "chip_smoke, chip_profile; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'ca_lanczos_tpu')]; "
             "assert not bad, bad")

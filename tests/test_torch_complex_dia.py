@@ -27,10 +27,12 @@ from ca_lanczos_tpu.ops.spmv import spmv as jspmv_fn
 from ca_lanczos_tpu_torch.basis.newton import newton_basis_matrix
 from ca_lanczos_tpu_torch.config import Basis
 from ca_lanczos_tpu_torch.ops import cuda_spmv
-from ca_lanczos_tpu_torch.ops import matrix_powers as mp
 from ca_lanczos_tpu_torch.utils.interop import operator_from_numpy
 
+# the ops package exports the functions spmv and matrix_powers, which
+# hide the modules of those names
 tspmv = importlib.import_module("ca_lanczos_tpu_torch.ops.spmv")
+mp = importlib.import_module("ca_lanczos_tpu_torch.ops.matrix_powers")
 TOL = 1e-13
 N = 2000
 PERIODIC = (-(N - 1), -(N - 2), -2, -1, 0, 1, 2, N - 2, N - 1)

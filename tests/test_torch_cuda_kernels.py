@@ -10,6 +10,7 @@ Tolerances: f32 1e-5 and f64 1e-12 relative to max|plain| per step (the
 sums run in another order)."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -322,7 +323,8 @@ def test_k2_on_complex_vectors(cuda, dtype, band):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", ["newton", "monomial", "steps"])
 def test_k1_on_a_complex_q(cuda, dtype, kind):
-    from ca_lanczos_tpu_torch.ops import matrix_powers as mp
+    # the ops package exports the function matrix_powers, which hides the module
+    mp = importlib.import_module("ca_lanczos_tpu_torch.ops.matrix_powers")
 
     n, s = 200_003, 6
     offsets = _periodic(n) if kind == "steps" else tuple(range(-4, 5))
