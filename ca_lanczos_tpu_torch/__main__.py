@@ -9,10 +9,14 @@ flags, defaults and JSON records:
   solve        — one-call production eigensolve: .mtx in, eigenvalues out
                  (format routing + driver escalation, harness.solve_auto)
 
+  scaling      — weak-scaling sweep of the distributed matrix powers
+
 The JAX package's ``--platform`` and ``--x64`` become ``--device {cuda,
 cpu}`` (default cuda; the port computes in the operator's dtype, float64
-for .mtx input).  ``scaling`` and ``solve --mesh/--hosts`` wait for the
-port of ``parallel/``.
+for .mtx input).  ``solve --mesh N`` starts N ranks on this host
+(``parallel.runtime.spawn``: one card each, refused when fewer cards are
+visible, or gloo CPU ranks with ``--device cpu``) and runs
+``parallel.dist_solve_auto``; ``--hosts H`` makes the mesh H x N/H.
 """
 
 from __future__ import annotations
@@ -37,11 +41,7 @@ def _emit(records, out):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        prog="ca_lanczos_tpu_torch",
-        epilog="Not yet ported (they wait for parallel/): the 'scaling' command and "
-        "solve --mesh/--hosts.",
-    )
+    ap = argparse.ArgumentParser(prog="ca_lanczos_tpu_torch")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where operators and vectors live (cpu: the kernels' plain "
                     "PyTorch versions)")
@@ -111,6 +111,22 @@ def main(argv=None):
                    "ignored by the solve: its relay-safe bursts have no "
                    "counterpart on the card")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--mesh", type=int, default=0, metavar="N",
+        help="solve row-sharded over N ranks (parallel.dist_solve_auto): one "
+        "card each, or gloo CPU ranks with --device cpu",
+    )
+    p.add_argument(
+        "--hosts", type=int, default=0, metavar="H",
+        help="with --mesh N: the hierarchical ('host','chip') mesh of H x N/H "
+        "ranks (parallel.make_hier_mesh) instead of the flat ring",
+    )
+    _add_common(p)
+
+    p = sub.add_parser("scaling", help="weak-scaling sweep of the distributed matrix powers")
+    p.add_argument("--devices", type=int, nargs="*", default=None)
+    p.add_argument("--rows-per-device", type=int, default=1 << 18)
+    p.add_argument("--s", type=int, default=8)
     _add_common(p)
 
     args = ap.parse_args(argv)
@@ -186,28 +202,58 @@ def main(argv=None):
             tol=args.tol, max_restarts=args.max_restarts,
         )
         rng = np.random.default_rng(args.seed)
-        res = solve_auto(
-            a, rng.standard_normal(a.shape[0]), args.max_lanczos, cfg,
-            prefer=args.prefer, max_windows=args.max_windows, sw=args.sw,
-            which=args.which, engine=args.engine,
-            cycles_per_call=args.cycles_per_call,
-            polish=args.polish, over_lock=args.over_lock,
-            allow_reorder=not args.no_reorder, device=device,
-        )
-        rec = {
-            "matrix": name,
-            "n": int(a.shape[0]),
-            "nnz": int(a.nnz),
-            "format": res.route.format if res.route else None,
-            "reordered": bool(res.route and res.route.perm is not None),
-            "route_notes": res.route.notes if res.route else [],
-            "solver": res.solver,
-            "escalated": res.escalated,
-            "converged": res.converged,
-            "n_restarts": res.n_restarts,
-            "eigs": [float(v) for v in np.sort(np.asarray(res.eigs))[::-1]],
-        }
+        r = rng.standard_normal(a.shape[0])
+        rec = {"matrix": name, "n": int(a.shape[0]), "nnz": int(a.nnz)}
+        if args.mesh:
+            from ca_lanczos_tpu_torch.parallel.auto import solve_rank
+            from ca_lanczos_tpu_torch.parallel.runtime import spawn
+
+            if (args.prefer != "auto" or args.sw is not None
+                    or args.max_windows != 16):
+                print(
+                    "warning: --prefer/--sw/--max-windows apply to the "
+                    "single-card route only; the distributed route picks "
+                    "its own format (see parallel.route_dist_operator)",
+                    file=sys.stderr,
+                )
+            if args.hosts and args.mesh % args.hosts:
+                raise SystemExit(f"--hosts {args.hosts} must divide --mesh {args.mesh}")
+            rec.update(spawn(
+                solve_rank, args.mesh, device, a, r, args.max_lanczos, cfg, args.hosts,
+                dict(which=args.which, polish=args.polish, over_lock=args.over_lock,
+                     allow_reorder=not args.no_reorder),
+            )[0])
+        else:
+            res = solve_auto(
+                a, r, args.max_lanczos, cfg,
+                prefer=args.prefer, max_windows=args.max_windows, sw=args.sw,
+                which=args.which, engine=args.engine,
+                cycles_per_call=args.cycles_per_call,
+                polish=args.polish, over_lock=args.over_lock,
+                allow_reorder=not args.no_reorder, device=device,
+            )
+            rec.update({
+                "format": res.route.format if res.route else None,
+                "reordered": bool(res.route and res.route.perm is not None),
+                "route_notes": res.route.notes if res.route else [],
+                "solver": res.solver,
+                "escalated": res.escalated,
+                "converged": res.converged,
+                "n_restarts": res.n_restarts,
+                "eigs": [float(v) for v in np.sort(np.asarray(res.eigs))[::-1]],
+            })
         _emit([rec], args.out)
+
+    elif args.cmd == "scaling":
+        import torch
+
+        from ca_lanczos_tpu_torch.parallel.runtime import scaling_sweep
+
+        visible = torch.cuda.device_count() if device == "cuda" else 1
+        counts = args.devices or sorted({1, visible})
+        recs = scaling_sweep(counts, rows_per_device=args.rows_per_device, s=args.s,
+                             device=device)
+        _emit(recs, args.out)
 
     return 0
 

@@ -256,11 +256,14 @@ def solve_auto(
     )
 
 
-def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int):
+def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int, device="cuda"):
     """f64 Rayleigh-Ritz polish of a converged block in the caller's
     frame: device path for DIA-representable f64 sources, host path
-    (scipy CSR in f64) otherwise.  Returns (w desc-in-solve-frame, resid,
-    Q (n, k) tensor) — w/resid aligned with Q's columns."""
+    (scipy CSR in f64) otherwise.  The device is the solve operator's, or
+    ``device`` when there is none (the distributed solve polishes the
+    gathered block against the raw matrix alone).  Returns (w
+    desc-in-solve-frame, resid, Q (n, k) tensor) — w/resid aligned with
+    Q's columns."""
     import scipy.sparse as sp
 
     from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
@@ -270,7 +273,7 @@ def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int):
     )
 
     sgn = -1.0 if which == "smallest" else 1.0
-    dev = A_solve.device
+    dev = A_solve.device if A_solve is not None else torch.device(device)
     if raw is not None and (route is None or route.perm is None):
         coo = sp.coo_matrix(raw)
         # Count distinct diagonals BEFORE any dia conversion (scattered

@@ -384,7 +384,7 @@ def _finalize(conv_eigs, conv_rnorms, Qc_rows, n_restarts, rnorm_rows, orth_err,
     eigs, rn = eigs[order][:keep], rn[order][:keep]
     Q_conv = None
     if Qc_rows is not None and len(order):
-        idx = torch.as_tensor(np.ascontiguousarray(order[:keep]), device=Qc_rows.device)
+        idx = torch.as_tensor(order[:keep].copy(), device=Qc_rows.device)
         Q_conv = Qc_rows.index_select(0, idx).T.contiguous()
     return RestartedResult(
         eigs=eigs,

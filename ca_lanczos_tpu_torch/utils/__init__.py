@@ -1,8 +1,7 @@
 """Test fixtures, diagnostics, checkpoints, Matrix Market I/O, RCM
 reordering, profiling and debug checks.
 
-Exports what the JAX package's ``utils`` exports, except
-``cross_device_consistency``, which waits for the port of ``parallel/``.
+Exports what the JAX package's ``utils`` exports.
 """
 
 from ca_lanczos_tpu_torch.utils.matrices import (
@@ -19,7 +18,11 @@ from ca_lanczos_tpu_torch.utils.diagnostics import (
     OmegaRecurrence,
 )
 from ca_lanczos_tpu_torch.utils.checkpoint import RestartCheckpoint
-from ca_lanczos_tpu_torch.utils.debug import assert_finite, check_deterministic
+from ca_lanczos_tpu_torch.utils.debug import (
+    assert_finite,
+    check_deterministic,
+    cross_device_consistency,
+)
 from ca_lanczos_tpu_torch.utils.mmio import load_mtx, load_operator, save_mtx
 from ca_lanczos_tpu_torch.utils.profiling import (
     RooflineReport,
@@ -42,6 +45,7 @@ __all__ = [
     "RestartCheckpoint",
     "assert_finite",
     "check_deterministic",
+    "cross_device_consistency",
     "load_mtx",
     "load_operator",
     "save_mtx",

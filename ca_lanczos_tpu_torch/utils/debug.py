@@ -5,8 +5,8 @@ and NaN guards.
 Counterpart of ``ca_lanczos_tpu/utils/debug.py``.  A structure is walked
 as JAX walks a pytree: tuples, lists, dict values and dataclass fields
 are descended into, ``None`` holds nothing, anything else (a tensor, an
-array, a number) is a leaf.  ``cross_device_consistency`` waits for the
-port of ``parallel/``.
+array, a number) is a leaf.  ``cross_device_consistency`` all-gathers a
+nominally replicated tensor over the ranks of the process group.
 """
 
 from __future__ import annotations
@@ -59,3 +59,24 @@ def check_deterministic(fn: Callable, *args, reps: int = 2) -> bool:
         if len(out) != len(ref) or not all(np.array_equal(a, b) for a, b in zip(ref, out)):
             return False
     return True
+
+
+def cross_device_consistency(x, atol: float = 0.0) -> float:
+    """Max deviation of a nominally replicated tensor or array across the
+    ranks of the default process group (an all-gather; every rank must
+    call it): 0.0 means every rank holds identical bytes.  0.0 without a
+    process group or at one rank."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() < 2:
+        return 0.0
+    from ca_lanczos_tpu_torch.parallel import comm
+    from ca_lanczos_tpu_torch.parallel.runtime import rank_device
+
+    t = torch.as_tensor(_host(x)).to(rank_device())
+    shards = [s.cpu().numpy() for s in comm.all_gather(t)]
+    ref = shards[0]
+    dev = max(float(np.max(np.abs(s - ref))) if s.size else 0.0 for s in shards[1:])
+    if atol and dev > atol:
+        raise AssertionError(f"cross-device deviation {dev} > {atol}")
+    return dev

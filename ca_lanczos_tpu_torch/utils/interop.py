@@ -15,6 +15,10 @@ operators.  Recognised by their fields:
 * ``BsrMatrix`` — ``vals`` (4-D tiles), ``cols``; tested before ELL, whose
   fields it shares;
 * ``EllMatrix`` — ``vals`` (2-D), ``cols``.
+
+``dist_dia_from_numpy`` does the same for a distributed ``DistDia``: it
+builds this rank's block of the port's ``parallel.DistDia`` from the JAX
+operator's per-shard planes.
 """
 
 from __future__ import annotations
@@ -57,3 +61,31 @@ def operator_from_numpy(A, device="cuda"):
     if hasattr(A, "a"):
         return DenseMatrix(a=_t(A.a, device))
     raise TypeError(f"no port counterpart for {type(A).__name__}")
+
+
+def dist_dia_from_numpy(A, mesh, ilv: bool = False):
+    """This rank's ``parallel.DistDia`` from a JAX ``DistDia``'s arrays:
+    ``data[p]`` (p = ``mesh.rank``) becomes the rank's (nd, n_local +
+    2*halo) planes; ``offsets``, ``halo``, ``n`` and ``periodic`` carry
+    over.  ``ilv=True`` rebuilds the interleaved planes of the rank's
+    padded domain from the shards' natural rows (the JAX package's
+    tile-major planes are a TPU layout and are not read)."""
+    from ca_lanczos_tpu_torch.parallel.distributed import DistDia, _ilv_planes
+
+    data = np.asarray(A.data)
+    P, _, m = data.shape
+    if P != mesh.size:
+        raise ValueError(f"operator has {P} shards, the mesh {mesh.size} ranks")
+    halo, n, periodic = int(A.halo), int(A.n), bool(A.periodic)
+    offsets = tuple(int(o) for o in A.offsets)
+    n_local = m - 2 * halo
+    p = mesh.rank
+    ilv_data, m_pad = None, 0
+    if ilv:
+        s_max = halo // max(max((abs(o) for o in offsets), default=1), 1)
+        rows = torch.from_numpy(np.ascontiguousarray(
+            np.concatenate([data[q, :, halo:halo + n_local] for q in range(P)], axis=1)[:, :n]))
+        ilv_data, m_pad = _ilv_planes(rows, offsets, n_local, s_max, p, periodic, mesh.device)
+    return DistDia(data=torch.from_numpy(np.ascontiguousarray(data[p])).to(mesh.device),
+                   offsets=offsets, halo=halo, n=n, mesh=mesh, periodic=periodic,
+                   ilv_data=ilv_data, ilv_m_pad=m_pad)

@@ -114,6 +114,28 @@ def _seconds(fn: Callable[[], None], device: torch.device, trials: int) -> float
     return min(ts)
 
 
+def cuda_event_ms(fn: Callable[[], object], reps: int = 20, warm: int = 3,
+                  batch: int = 10) -> float:
+    """Device milliseconds per call of fn(): the median over ``reps`` runs
+    of ``batch`` back-to-back calls between two CUDA events, over batch.
+    Within a run the host prepares the next call while the card runs the
+    last, so only the first call's host work shows (1/batch of it)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(batch):
+            fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / batch)
+    return float(np.median(ts))
+
+
 def measure_powers_throughput(
     A: DiaMatrix,
     s: int = 8,

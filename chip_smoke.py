@@ -133,13 +133,48 @@ Phase I  the file-in entry.  (a) Phase 3's matrix in float64
          rate is held against phase 1's K1 bound for the same bytes (K1
          reads the planes once per s steps, so the per-step model is no
          bound for it).
+Phase J  the distributed layer (``ca_lanczos_tpu_torch.parallel``) on
+         P = min(4, cards) ranks started by ``parallel.runtime.spawn``
+         (NCCL, one card each; the rank work is ``parallel.smoke.
+         phase_j_rank``), all three solves in one launch at path A's
+         settings (n_wanted=10, s=8, tol=1e-4, max_restarts=200,
+         polish=10, over_lock=3, r = ones) on 11,010,048 rows.  (a)
+         ``dist_solve_auto`` on path A's f32 flagship: route "ilv" (K3 on
+         each rank's padded interleaved domain), label
+         "dist_restarted_ca_lanczos+polish10".  (b) ``dist_restarted_ca_
+         lanczos`` on the same matrix with dist_format="dia" (K1 on each
+         rank's halo-padded shard), n_wanted 13, then the f64 polish of
+         the gathered block on rank 0.  (c) ``dist_solve_auto`` on phase
+         F's clustered f64 matrix, max_lanczos=48: the probe must pick the
+         IRL ("dist_impl_restarted_ca_lanczos+polish10"), natural engine,
+         K1 in f64.  Each: not escalated, converged, max |eig - oracle| /
+         ||A|| <= 1e-6 (the committed oracle; the planted values for (c)),
+         the same eigenvalues on every rank.  Before each solve every rank
+         holds each kernel that the solve runs on its shard (K3 at s = 8
+         and at s = 1, the locking and true-residual products, on the
+         interleaved engine; K1 at s = 8 and K2 on the natural engine, in
+         the solve's dtype) at the shard's padded shape against the plain
+         version (1e-5 f32, 1e-12 f64) and times both, and each must be
+         launched by the solve;
+         after it, the collectives of one CA block (exchanges, halo
+         elements, all-reduces, all-gathers: ``parallel.comm``) and
+         ``cross_device_consistency`` of the replicated R (must be 0).
+         The ranks return their launch counts, which the totals add up.
+         Restarts and stage seconds print beside paths A, E and F.  (d)
+         ``python -m ca_lanczos_tpu_torch scaling --devices P
+         --rows-per-device 11010048`` (the flagship's shard) and
+         ``solve --mesh P --mtx`` on a 500-row tridiagonal this phase
+         writes (TMPDIR), each a subprocess that must exit 0 with one JSON
+         record (the solve: converged, top 3 within rtol 1e-7 of the dense
+         oracle).
 
 Phases 2 and 3, C and D use engine="fused"; paths A-D check the label
 "restarted_ca_lanczos+polish10", E the same at the host engine, F
 "impl_restarted_ca_lanczos+polish10"; none may escalate.  Every launch
 counter is set to 0 just before each main path (A-F, each form of G, each
 route of H, the CLI solve, each corpus member and each profiling chain of
-I) and read just after it; a kernel's ``launches`` is the sum over them.
+I, each solve of J in its rank's process) and read just after it; a
+kernel's ``launches`` is the sum over them.
 Any failed check raises (exit code != 0).  The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -173,24 +208,12 @@ def log(msg: str) -> None:
 
 
 def time_ms(torch, fn, reps: int = REPS, warm: int = 3, batch: int = BATCH) -> float:
-    """Device milliseconds per call of fn(): the median over reps of a run
-    of ``batch`` back-to-back calls between two CUDA events, over batch.
-    Within a run the host prepares the next call while the card runs the
-    last, so only the first call's host work shows (1/batch of it)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(batch):
-            fn()
-        b.record()
-        b.synchronize()
-        ts.append(a.elapsed_time(b) / batch)
-    return float(np.median(ts))
+    """Device milliseconds per call of fn() (``utils.profiling.cuda_event_ms``:
+    the median over reps of ``batch`` back-to-back calls between two CUDA
+    events, over batch)."""
+    from ca_lanczos_tpu_torch.utils.profiling import cuda_event_ms
+
+    return cuda_event_ms(fn, reps, warm, batch)
 
 
 def rel_err(torch, got, ref) -> float:
@@ -585,33 +608,45 @@ def phase1_pell(torch, a32):
     return out
 
 
-def flagship(n: int):
-    """exp/flagship_10m.py:47-53,62: the planted-top tridiagonal, f64."""
-    import scipy.sparse as sp
-
+def flagship_planes(n: int):
+    """exp/flagship_10m.py:47-53: the planted-top tridiagonal's diagonal d
+    and couplings off (A[i, i+1] = A[i+1, i] = off[i]), f64."""
     d = np.linspace(1.0, 90.0, n)
     d[-10:] = np.linspace(95.0, 100.0, 10)
-    rng = np.random.default_rng(0)
-    off = (rng.standard_normal(n) * 1e-3).astype(np.float64)
+    off = (np.random.default_rng(0).standard_normal(n) * 1e-3).astype(np.float64)
+    return d, off
+
+
+def flagship(n: int):
+    """exp/flagship_10m.py:47-53,62: the planted-top tridiagonal, f64, and
+    its committed oracle."""
+    import scipy.sparse as sp
+
+    d, off = flagship_planes(n)
     a = sp.diags([off[:-1], d, off[:-1]], [-1, 0, 1], format="csr")
     exact = np.load(os.path.join(ROOT, "exp", f"flagship_10m_oracle_{n}.npz"))["exact"]
     return a, exact
 
 
-def cluster(n: int):
+def cluster_planes(n: int):
     """Phase F's matrix: the flagship recipe with the top 10 diagonal
     entries replaced by a cluster 99 + 0.01 k (k = 0..9) and the
     off-diagonals of the last 11 rows set to 0, so that the last 10 rows
     and columns decouple and the top 10 eigenvalues are exactly those
-    entries (the rest lie below 90.01).  f64; returns (a, exact desc)."""
-    import scipy.sparse as sp
-
+    entries (the rest lie below 90.01).  f64; returns (d, off, exact desc)."""
     d = np.linspace(1.0, 90.0, n)
     d[-10:] = 99.0 + 0.01 * np.arange(10)
     off = np.random.default_rng(0).standard_normal(n) * 1e-3
     off[n - 11:] = 0.0
-    a = sp.diags([off[:-1], d, off[:-1]], [-1, 0, 1], format="csr")
-    return a, d[-10:][::-1].copy()
+    return d, off, d[-10:][::-1].copy()
+
+
+def cluster(n: int):
+    """:func:`cluster_planes` as a CSR matrix; returns (a, exact desc)."""
+    import scipy.sparse as sp
+
+    d, off, exact = cluster_planes(n)
+    return sp.diags([off[:-1], d, off[:-1]], [-1, 0, 1], format="csr"), exact
 
 
 def counted(torch, totals: dict, fn):
@@ -1228,6 +1263,127 @@ def phase_i(torch, totals: dict, rows: list, n_file: int = FILE_N) -> None:
     check_bound("dia_powers_fused (bench)", "float32", k1_ms, k1["bound_ms"])
 
 
+def phase_j(torch, totals: dict, paths: dict, rows: list, n: int = 11010048) -> None:
+    """The distributed layer on the card (module docstring, phase J);
+    ``rows`` are phase 1's f32 kernel rows."""
+    import tempfile
+
+    import scipy.sparse as sp
+
+    from ca_lanczos_tpu_torch.parallel.runtime import spawn
+    from ca_lanczos_tpu_torch.parallel.smoke import phase_j_rank
+    from ca_lanczos_tpu_torch.utils import mmio
+
+    P = min(4, torch.cuda.device_count())
+    torch.cuda.empty_cache()
+    d_a, off_a = flagship_planes(n)
+    exact_a = np.load(os.path.join(ROOT, "exp", f"flagship_10m_oracle_{n}.npz"))["exact"]
+    d_c, off_c, exact_c = cluster_planes(n)
+    jobs = [
+        ("J(a) dist_solve_auto, ilv/K3", dict(d=d_a, off=off_a, dtype="float32", max_lanczos=32,
+                                              engine="auto"), exact_a, "ilv",
+         "dist_restarted_ca_lanczos+polish10", "dia_powers_ilv", "A (fused)"),
+        ("J(b) dist_restarted_ca_lanczos, natural/K1", dict(d=d_a, off=off_a, dtype="float32",
+                                                            max_lanczos=32, engine="dia"),
+         exact_a, "ilv", "dist_restarted_ca_lanczos+polish10", "dia_powers_fused", "E (host)"),
+        ("J(c) dist_solve_auto, IRL first rung, f64 natural/K1",
+         dict(d=d_c, off=off_c, dtype="float64", max_lanczos=48, engine="auto"), exact_c,
+         "dia", "dist_impl_restarted_ca_lanczos+polish10", "dia_powers_fused", "F (IRL, f64)"),
+    ]
+    t0 = time.perf_counter()
+    outs = spawn(phase_j_rank, P, "cuda", [j[1] for j in jobs], BOUND, timeout=900)
+    log(f"J: {P} rank(s), NCCL; the three solves in {time.perf_counter() - t0:.1f}s "
+        "(spawn, builds and kernel checks included)")
+    failed = []
+    by = {row["name"]: row for row in rows}
+    for i, (label, _, exact, fmt, solver, kname, beside) in enumerate(jobs):
+        res = outs[0][i]
+        for rank, o in enumerate(outs):
+            for key, v in o[i]["launches"].items():
+                totals[key] = totals.get(key, 0) + v
+            for k in o[i]["kernels"]:
+                bms, bby = bound_ms(k["nbytes"], k["flops"], k["dtype"])
+                log(f"{label} rank {rank}: kernel {k['name']} [{k['dtype']}] at the shard's "
+                    f"shape {tuple(k['shape'])} s={k['s']}: rel_err={k['rel_err']:.3e} "
+                    f"(bound {BOUND[k['dtype']]:.0e}) abs_err={k['max_abs_err']:.3e} kernel "
+                    f"{k['ms']:.4f} ms plain {k['plain_ms']:.4f} ms bound {bms:.4f} ms "
+                    f"({bby}; {bms / k['ms']:.0%} of it) [phase 1 f32 at bench.py's operator: "
+                    f"{by[k['name']]['ms']:.4f} ms, bound {by[k['name']]['bound_ms']:.4f} ms]")
+                if not k["ok"]:
+                    failed.append(f"{label} rank {rank}: {k['name']} s={k['s']} disagrees "
+                                  f"({k['rel_err']:.3e})")
+                if o[i]["launches"].get(k["name"], 0) == 0:
+                    failed.append(f"{label} rank {rank}: {k['name']} not launched by the solve")
+                check_bound(f"{k['name']} s={k['s']} ({label})", k["dtype"], k["ms"], bms)
+            log(f"{label} rank {rank}: n_local={o[i]['n_local']} halo={o[i]['halo']} "
+                f"ilv_m_pad={o[i]['ilv_m_pad']}; launches {o[i]['launches']}; "
+                f"peak {o[i]['peak_gib']:.2f} GiB")
+            c = o[i]["comm"]
+            log(f"{label} rank {rank}: one CA block: exchanges={c['exchanges']} "
+                f"halo_elems={c['halo_elems']} all_reduce={c['all_reduce']} "
+                f"({c['all_reduce_elems']} elems) all_gather={c['all_gather']} "
+                f"({c['all_gather_elems']} elems); cross_device_consistency(R)={c['R_spread']}")
+            if c["R_spread"] != 0.0:
+                failed.append(f"{label} rank {rank}: replicated R differs across ranks")
+        got = np.sort(np.asarray(res["eigs"]))[::-1]
+        err = (float(np.max(np.abs(got - exact))) / abs(float(exact[0])) if len(got) == 10
+               else float("inf"))
+        presid = float(np.max(res["polish_resid"])) / abs(float(exact[0]))
+        log(f"{label}: route={res['format']} engine={res['engine']} solver={res['label']} "
+            f"converged={res['converged']} escalated={res['escalated']} "
+            f"n_restarts={res['restarts']} eig_rel_err={err:.3e} (bound 1e-6) "
+            f"max_polish_resid/|A|={presid:.3e}; notes {res['notes']}")
+        log(f"{label}: stages " + " ".join(f"{k}={v:.2f}s" for k, v in res["stages"].items())
+            + f" total={res['wall']:.2f}s (matrix + route {res['build_s']:.2f}s before it)")
+        p = paths[beside]
+        log(f"{label} beside path {beside}: restarts={p['restarts']} "
+            + " ".join(f"{k}={v:.2f}s" for k, v in p["stages"].items())
+            + f" total={p['total']:.2f}s")
+        checks = {
+            f"route == {fmt!r}": res["format"] == fmt,
+            f"solver == {solver!r}": res["label"] == solver,
+            "not escalated": not res["escalated"],
+            "converged": res["converged"],
+            "eig_rel_err <= 1e-6": err <= 1e-6,
+            f"{kname} launched": res["launches"].get(kname, 0) > 0,
+            "same eigs on every rank": all(np.array_equal(o[i]["eigs"], res["eigs"])
+                                          for o in outs),
+        }
+        failed += [f"{label}: {k}" for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase J failed: {failed}")
+
+    # (d) the CLI: scaling at [P] with the flagship's shard a rank, and
+    # solve --mesh P on a 500-row file
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ca_lanczos_tpu_torch", "scaling",
+                           "--devices", str(P), "--rows-per-device", str(n)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    log(f"J(d) python -m ca_lanczos_tpu_torch scaling --devices {P} --rows-per-device {n}: "
+        f"rc={proc.returncode} in {time.perf_counter() - t0:.1f}s: {' | '.join(lines)}")
+    if proc.returncode != 0 or len(lines) != 1 or json.loads(lines[0])["devices"] != P:
+        raise AssertionError(f"J(d) scaling failed: {proc.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "band500.mtx")
+        dd = np.linspace(1.0, 40.0, 500)
+        band = sp.diags([0.05 * np.ones(499), dd, 0.05 * np.ones(499)], [-1, 0, 1])
+        mmio.save_mtx(path, band, symmetric=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ca_lanczos_tpu_torch", "solve", "--mtx",
+                               path, "--n-wanted", "3", "--max-lanczos", "24", "--s", "4",
+                               "--mesh", str(P)], cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    log(f"J(d) python -m ca_lanczos_tpu_torch solve --mesh {P} --mtx band500.mtx: "
+        f"rc={proc.returncode} in {time.perf_counter() - t0:.1f}s: {' | '.join(lines)}")
+    rec = json.loads(lines[0]) if proc.returncode == 0 and len(lines) == 1 else {}
+    exact = np.sort(np.linalg.eigvalsh(band.toarray()))[::-1][:3]
+    if not (rec.get("converged") and rec["solver"].startswith("dist_")
+            and np.allclose(rec["eigs"][:3], exact, rtol=1e-7, atol=0)):
+        raise AssertionError(f"J(d) solve --mesh failed: {rec} {proc.stderr[-2000:]}")
+
+
 def phase(torch, name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1302,6 +1458,8 @@ def main() -> int:
     phase(torch, "phase G", lambda: phase_g(torch, totals))
     phase(torch, "phase H", lambda: phase_h(torch, totals))
     phase(torch, "phase I", lambda: phase_i(torch, totals, rows))
+    phase(torch, "phase J", lambda: phase_j(
+        torch, totals, {"A (fused)": path_a, "E (host)": path_e, "F (IRL, f64)": path_f}, rows))
 
     for row in rows:
         row["launches"] = totals.get(row["name"], 0)

@@ -4,11 +4,17 @@ object, except the documented exceptions:
 
 * ``ops.pick_tile`` — it picked the Pallas grid's tile; K1's launch is
   planned by ``ops.cuda_spmv.k1_plan``;
-* ``utils.cross_device_consistency`` — it waits for the port of
-  ``parallel/``.
+* ``parallel``'s second-slice operators and drivers (``DistBsr``,
+  ``DistEll``, ``DistPell``, their matrix powers, ``dist_sstep_lanczos``)
+  — they wait for the second slice of the distributed layer.
+
+Importing ``ca_lanczos_tpu_torch.parallel`` imports no JAX and starts no
+process group (checked in a fresh interpreter).
 """
 
 import importlib
+import subprocess
+import sys
 
 import pytest
 
@@ -16,9 +22,11 @@ EXCEPTIONS = {
     "": set(),
     ".ops": {"pick_tile"},
     ".harness": set(),
-    ".utils": {"cross_device_consistency"},
+    ".utils": set(),
     ".solvers": set(),
     ".basis": set(),
+    ".parallel": {"DistBsr", "DistEll", "DistPell", "dist_ell_matrix_powers",
+                  "dist_pell_matrix_powers", "dist_bsr_matrix_powers", "dist_sstep_lanczos"},
 }
 
 
@@ -33,3 +41,11 @@ def test_exports_match_jax(sub):
         obj = getattr(tmod, name)
         mod = getattr(obj, "__module__", None)
         assert mod is None or mod.startswith("ca_lanczos_tpu_torch"), (name, mod)
+
+
+def test_importing_parallel_imports_no_jax_and_starts_no_group():
+    code = ("import sys, torch.distributed as d, ca_lanczos_tpu_torch.parallel; "
+            "print('jax' in sys.modules, d.is_initialized())")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, timeout=120).stdout.split()
+    assert out == ["False", "False"]
