@@ -10,10 +10,10 @@ package's):
 * :func:`dryrun_multichip` — ``n`` ranks (``parallel.runtime.spawn``: one
   card each, or gloo CPU ranks with ``device="cpu"``) run the distributed
   block step and ``dist_ca_lanczos`` on the natural and interleaved
-  engines, the locked restarted driver and the distributed IRL, each
+  engines, the general-sparsity engine (a DistPell: K4 on each rank's
+  window), the locked restarted driver and the distributed IRL, each
   holding its Ritz values to the single-card port or to a planted
-  spectrum.  The JAX dry run's PELL engine waits for the second slice of
-  the distributed layer.
+  spectrum.
 """
 
 from __future__ import annotations
@@ -70,11 +70,14 @@ def _ritz_parity(res, A, r, s: int, steps: int, tag: str, rtol: float = 5e-4) ->
 
 def _dryrun_rank() -> dict:
     """One rank of :func:`dryrun_multichip`; returns what it checked."""
+    import scipy.sparse as sp
     import torch.distributed as dist
 
     from ca_lanczos_tpu_torch.config import LanczosConfig
+    from ca_lanczos_tpu_torch.ops.spmv import EllMatrix
     from ca_lanczos_tpu_torch.parallel import (
         DistDia,
+        DistPell,
         dist_ca_block,
         dist_ca_lanczos,
         dist_first_block,
@@ -126,6 +129,18 @@ def _dryrun_rank() -> dict:
     _ritz_parity(res_ilv, A_ilv, r_ilv, s, steps, "ilv")
     assert res_ilv.Q.shape == (n_ilv, steps)
 
+    # The general-sparsity engine on an irregular pattern the banded
+    # formats reject (offsets +-7 besides the tridiagonal).
+    n_g = P * 64
+    g = sp.diags([np.full(n_g, 2.0), np.full(n_g - 1, -1.0), np.full(n_g - 1, -1.0),
+                  0.1 * rng.random(n_g - 7), 0.1 * rng.random(n_g - 7)],
+                 [0, -1, 1, 7, -7]).tocsr()
+    g = ((g + g.T) / 2).astype(np.float32)
+    A_g = EllMatrix.from_scipy(g, device="cpu")
+    r_g = rng.standard_normal(n_g).astype(np.float32)
+    res_g = dist_ca_lanczos(DistPell.from_ell(A_g, mesh, s_max=s), r_g, s, steps, mesh)
+    _ritz_parity(res_g, A_g, r_g, s, steps, "pell")
+
     top = np.array([20.0, 22.0, 25.0], np.float32)
     A_r = _planted_diag(P * 128, top)
     cfg = LanczosConfig(s=s, n_wanted=3, tol=1e-4, max_restarts=30)
@@ -143,7 +158,7 @@ def _dryrun_rank() -> dict:
         np.testing.assert_allclose(np.sort(res_i.eigs)[::-1], np.sort(top_i)[::-1],
                                    rtol=1e-3, err_msg=f"IRL({tag}): wrong spectrum")
 
-    checked = ["block step", "natural", "ilv", "restarted", "irl natural", "irl ilv"]
+    checked = ["block step", "natural", "ilv", "pell", "restarted", "irl natural", "irl ilv"]
     if P % 2 == 0 and P >= 4:
         hier = make_hier_mesh(2, P // 2)
         _ritz_parity(dist_ca_lanczos(A_ilv, r_ilv, s, steps, hier), A_ilv, r_ilv, s, steps,

@@ -53,8 +53,9 @@ def dia_from_scipy(
     ``len(offsets) * n`` within ``waste_cap`` x nnz.  O(nnz log nnz)."""
     import scipy.sparse as sp
 
-    coo = sp.coo_matrix(a)
-    coo.sum_duplicates()
+    csr = sp.csr_matrix(a)
+    csr.sum_duplicates()  # a no-op on a canonical CSR; COO's would sort again
+    coo = csr.tocoo()
     n = coo.shape[0]
     if coo.shape[0] != coo.shape[1]:
         raise ValueError("square matrices only")

@@ -848,6 +848,26 @@ def pell_slot_counts(vals: torch.Tensor, ntiles: int, K: int, tile: int) -> torc
     return (occupied * ordinal[None, :, None]).amax(dim=1).to(torch.int32).contiguous()
 
 
+def pell_step_bytes(A: PellMatrix) -> Tuple[int, int]:
+    """(bytes one step must move, bytes of the full planes + vectors),
+    the bound's numerator.  Unit encoding: the occupied prefix of each
+    group's slots of vals, lidx and cbase (taken from vals itself, so it
+    counts what the function needs whichever kernel runs), plus the
+    per-group counts and span_row; grouped: every plane.  Both add x
+    (n_x) and v_prev read once, y (n_pad) written once."""
+    item = A.vals.element_size()
+    vectors = (A.n_x + 2 * A.n_pad) * item
+    full = sum(t.numel() * t.element_size()
+               for t in (A.vals, A.lidx, A.cbase, A.span_row)) + vectors
+    if A.enc != "unit":
+        return full, full
+    groups = A.ntiles * (A.tile // LANES)
+    slots = int(pell_slot_counts(A.vals, A.ntiles, A.k_slots, A.tile).sum())
+    need = (slots * (LANES * (item + A.lidx.element_size()) + 4) + groups * 4
+            + A.span_row.numel() * 4 + vectors)
+    return need, full
+
+
 def _columns(A: PellMatrix) -> torch.Tensor:
     """Column index of every plane entry, (ntiles, K, tile) int64, decoded
     as ``to_dense`` decodes (vectorised).  A window index past the last

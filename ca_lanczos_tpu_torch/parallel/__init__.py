@@ -1,15 +1,12 @@
 """The distributed layer on ``torch.distributed`` (counterpart of
-``ca_lanczos_tpu/parallel``): row-sharded DIA operators on the natural
-(K1) and interleaved (K3) engines, halo exchanges, all-reduced block
-orthogonalization, the CA / restarted / IRL drivers and
-``dist_solve_auto``.  One process per rank (SPMD); ``runtime.spawn``
-starts them on one host.
+``ca_lanczos_tpu/parallel``): row-sharded operators (DIA on the natural
+(K1) and interleaved (K3) engines, ELL, PELL through K4, BSR), halo
+exchanges, all-reduced block orthogonalization, the CA / restarted / IRL
+/ s-step drivers, the split propagator and ``dist_solve_auto``.  One
+process per rank (SPMD); ``runtime.spawn`` starts them on one host.
 
-Exports the JAX package's ``__all__`` except the operators and drivers
-of the second slice: ``DistBsr``, ``DistEll``, ``DistPell``,
-``dist_ell_matrix_powers``, ``dist_pell_matrix_powers``,
-``dist_bsr_matrix_powers`` and ``dist_sstep_lanczos``.  Importing it
-starts no process group.
+Exports the JAX package's ``__all__``.  Importing it starts no process
+group.
 """
 
 from ca_lanczos_tpu_torch.parallel.mesh import (
@@ -54,7 +51,11 @@ from ca_lanczos_tpu_torch.parallel.step import (
 )
 from ca_lanczos_tpu_torch.parallel.auto import dist_solve_auto, route_dist_operator
 from ca_lanczos_tpu_torch.parallel.driver import DistCaLanczosResult, dist_ca_lanczos, dist_lanczos
+from ca_lanczos_tpu_torch.parallel.dist_bsr import DistBsr, dist_bsr_matrix_powers
+from ca_lanczos_tpu_torch.parallel.dist_ell import DistEll, dist_ell_matrix_powers
+from ca_lanczos_tpu_torch.parallel.dist_pell import DistPell, dist_pell_matrix_powers
 from ca_lanczos_tpu_torch.parallel.dist_irl import dist_impl_restarted_ca_lanczos
+from ca_lanczos_tpu_torch.parallel.dist_sstep import dist_sstep_lanczos
 from ca_lanczos_tpu_torch.parallel.restarted import dist_restarted_ca_lanczos
 from ca_lanczos_tpu_torch.parallel.runtime import initialize_multihost, scaling_sweep
 
@@ -96,7 +97,14 @@ __all__ = [
     "dist_ca_lanczos",
     "dist_lanczos",
     "DistCaLanczosResult",
+    "DistBsr",
+    "DistEll",
+    "dist_ell_matrix_powers",
+    "DistPell",
+    "dist_bsr_matrix_powers",
+    "dist_pell_matrix_powers",
     "dist_impl_restarted_ca_lanczos",
+    "dist_sstep_lanczos",
     "dist_restarted_ca_lanczos",
     "initialize_multihost",
     "scaling_sweep",

@@ -6,10 +6,9 @@ the route is
 
   1. diagonal-sparse      -> DiaMatrix: the interleaved engine (K3) when
                              the shard admits it, else the natural one (K1)
-  2. bounded bandwidth    -> "pell" when the matrix PELL-encodes, else
-                             "ell" (the JAX package's DistPell / DistEll;
-                             ``partition_operator`` refuses both until the
-                             second slice of the port)
+  2. bounded bandwidth    -> an EllMatrix: "pell" when the matrix
+                             PELL-encodes (DistPell: K4 on each rank's
+                             window), else "ell" (DistEll: the gather)
   3. unbounded spread     -> RCM reorder, then 1-2 on the permuted matrix
 
 ``dist_solve_auto`` runs SPMD: every rank calls it with the same

@@ -6,7 +6,9 @@ The test suite starts gloo ranks once per file (``runtime.spawn`` with
 the same numpy inputs; a spawned rank can only run functions of this
 package, so the cases live here.  Every case takes the mesh first and
 numpy inputs after, and returns host data (whole vectors gathered on
-every rank), so rank 0's answer is the distributed answer.
+every rank), so rank 0's answer is the distributed answer.  A host
+operator is given as planes, ``data``/``offsets`` (DIA) or ``op``: a
+tuple ("dia", data, offsets), ("ell", vals, cols) or ("bsr", vals, cols).
 """
 
 from __future__ import annotations
@@ -43,6 +45,48 @@ def run(specs: Sequence[Tuple[str, str, dict]], hier: Optional[Tuple[int, int]] 
 
 def _dia(data, offsets) -> DiaMatrix:
     return DiaMatrix(data=torch.as_tensor(np.asarray(data)), offsets=tuple(offsets))
+
+
+def _host_op(data=None, offsets=None, op=None):
+    """The host operator (CPU planes) of a case: DIA ``data``/``offsets``,
+    or the ``op`` tuple (module docstring)."""
+    from ca_lanczos_tpu_torch.ops.bsr import BsrMatrix
+    from ca_lanczos_tpu_torch.ops.spmv import EllMatrix
+
+    if op is None:
+        return _dia(data, offsets)
+    kind, a, b = op
+    if kind == "dia":
+        return _dia(a, b)
+    cls = {"ell": EllMatrix, "bsr": BsrMatrix}[kind]
+    return cls(vals=torch.as_tensor(np.asarray(a)), cols=torch.as_tensor(np.asarray(b),
+                                                                         dtype=torch.int64))
+
+
+def _dist_op(mesh, op, s_max: int, dist_format: str = "auto", periodic: bool = False,
+             jax_part=None):
+    """This rank's distributed operator: ``op`` partitioned by the port
+    (``step.partition_operator``, or ``from_dia`` / ``from_ell`` with
+    ``periodic``), or, with ``jax_part`` (a dict of a JAX distributed
+    operator's stacked planes and statics), JAX's own partition carried
+    across (``utils.interop.dist_operator_from_numpy``)."""
+    from types import SimpleNamespace
+
+    from ca_lanczos_tpu_torch.parallel.dist_ell import DistEll
+    from ca_lanczos_tpu_torch.parallel.dist_pell import DistPell
+    from ca_lanczos_tpu_torch.parallel.distributed import DistDia
+    from ca_lanczos_tpu_torch.parallel.step import partition_operator
+    from ca_lanczos_tpu_torch.utils.interop import dist_operator_from_numpy
+
+    if jax_part is not None:
+        return dist_operator_from_numpy(SimpleNamespace(**jax_part), mesh)
+    A = _host_op(op=op)
+    if not periodic:
+        return partition_operator(A, mesh, s_max=s_max, dist_format=dist_format)
+    if isinstance(A, DiaMatrix):
+        return DistDia.from_dia(A, mesh, s_max=s_max, periodic=True)
+    cls = DistPell if dist_format == "pell" else DistEll
+    return cls.from_ell(A, mesh, s_max=s_max, periodic=True)
 
 
 def _dist(mesh: Mesh, data, offsets, s_max: int, periodic: bool = False, ilv: bool = False):
@@ -99,25 +143,27 @@ def psum(mesh, X):
     return psum_rows(torch.as_tensor(X[mesh.rank]).to(mesh.device), mesh)
 
 
-def ca_lanczos(mesh, data, offsets, r, s, steps, want_Q=False, **kw):
+def ca_lanczos(mesh, data=None, offsets=None, *, r, s, steps, want_Q=False, op=None, **kw):
     from ca_lanczos_tpu_torch.parallel.driver import dist_ca_lanczos
 
-    res = dist_ca_lanczos(_dia(data, offsets), r, s, steps, mesh, **kw)
-    return {"T": res.T, "Q": res.Q if want_Q else None}
+    res = dist_ca_lanczos(_host_op(data, offsets, op), r, s, steps, mesh, **kw)
+    return {"T": res.T, "Q": res.Q if want_Q else None, "op": type(res.op).__name__}
 
 
-def restarted(mesh, data, offsets, r, max_lanczos, cfg, **kw):
+def restarted(mesh, data=None, offsets=None, *, r, max_lanczos, cfg, op=None, **kw):
     from ca_lanczos_tpu_torch.parallel.restarted import dist_restarted_ca_lanczos
 
-    res = dist_restarted_ca_lanczos(_dia(data, offsets), r, max_lanczos, mesh, cfg, **kw)
+    res = dist_restarted_ca_lanczos(_host_op(data, offsets, op), r, max_lanczos, mesh, cfg,
+                                    **kw)
     return {"eigs": res.eigs, "Q": res.Q_conv, "converged": res.converged,
             "n_restarts": res.n_restarts}
 
 
-def irl(mesh, data, offsets, r, max_lanczos, **kw):
+def irl(mesh, data=None, offsets=None, *, r, max_lanczos, op=None, **kw):
     from ca_lanczos_tpu_torch.parallel.dist_irl import dist_impl_restarted_ca_lanczos
 
-    res = dist_impl_restarted_ca_lanczos(_dia(data, offsets), r, max_lanczos, mesh, **kw)
+    res = dist_impl_restarted_ca_lanczos(_host_op(data, offsets, op), r, max_lanczos, mesh,
+                                         **kw)
     return {"eigs": res.eigs, "Q": res.Q_conv, "converged": res.converged,
             "n_restarts": res.n_restarts}
 
@@ -154,18 +200,28 @@ def route(mesh, a, s_max, **kw):
             "notes": rt.notes}
 
 
-def partition_refuses(mesh, a=None, dist_format="auto"):
-    """The error ``partition_operator`` raises for ``a`` (a scipy matrix
-    made an EllMatrix; None: a plain object)."""
+def partition(mesh, a=None, dist_format="auto", kind="ell"):
+    """What ``partition_operator`` makes of ``a`` (a scipy matrix made an
+    EllMatrix, or with ``kind="bsr"`` a 4x4-tile BsrMatrix; None: a plain
+    object) at s_max=4: the distributed operator's type, halo and rows and
+    whether partitioning it again passes it through, or the error's type
+    and message."""
+    from ca_lanczos_tpu_torch.ops.bsr import BsrMatrix
     from ca_lanczos_tpu_torch.ops.spmv import EllMatrix
     from ca_lanczos_tpu_torch.parallel.step import partition_operator
 
-    op = object() if a is None else EllMatrix.from_scipy(a, device="cpu")
+    if a is None:
+        op = object()
+    elif kind == "bsr":
+        op = BsrMatrix.from_scipy(a, block_size=4, device="cpu")
+    else:
+        op = EllMatrix.from_scipy(a, device="cpu")
     try:
-        partition_operator(op, mesh, s_max=4, dist_format=dist_format)
+        D = partition_operator(op, mesh, s_max=4, dist_format=dist_format)
     except (TypeError, ValueError) as e:
         return {"type": type(e).__name__, "msg": str(e)}
-    return {"type": None}
+    return {"type": None, "op": type(D).__name__, "halo": D.halo, "n_local": D.n_local,
+            "same": partition_operator(D, mesh, s_max=4, dist_format=dist_format) is D}
 
 
 def make_mesh_refuses(mesh, n):
@@ -290,3 +346,80 @@ def interop(mesh, jdata, offsets, halo, n, periodic, s_max, ilv):
     A = _dist(mesh, rows, offsets, s_max, periodic, ilv=ilv)
     return {"interop": J.data, "from_dia": A.data, "halo": A.halo,
             "interop_ilv": J.ilv_data, "from_dia_ilv": A.ilv_data}
+
+
+# ---------------------------------------------------------------------------
+# The second slice: ELL, PELL, BSR, s-step, propagation
+# ---------------------------------------------------------------------------
+
+
+def gen_powers(mesh, op, x, s, diag=None, sub=None, s_max=None, dist_format="auto",
+               periodic=False, jax_part=None, state=None):
+    """(n, s+1) powers of a distributed ELL / PELL / BSR / DIA operator
+    (``dist_matrix_powers`` of its type), gathered; ``state`` names the
+    driver state's dtype when it differs from the operator's (the f64
+    state on f32 planes); also the operator's type and halo."""
+    from ca_lanczos_tpu_torch.parallel import (
+        DistBsr,
+        DistEll,
+        DistPell,
+        dist_bsr_matrix_powers,
+        dist_ell_matrix_powers,
+        dist_matrix_powers,
+        dist_pell_matrix_powers,
+    )
+
+    A = _dist_op(mesh, op, s_max or s, dist_format, periodic, jax_part)
+    fn = {DistEll: dist_ell_matrix_powers, DistPell: dist_pell_matrix_powers,
+          DistBsr: dist_bsr_matrix_powers}.get(type(A), dist_matrix_powers)
+    x_l = A.shard_vector(x).to(getattr(torch, state) if state else A.dtype)
+    V = fn(A, x_l, s, diag, sub, mesh)
+    return {"V": A.gather_columns(V), "type": type(A).__name__, "halo": A.halo,
+            "dtype": str(V.dtype).split(".")[-1], "planes": str(A.dtype).split(".")[-1]}
+
+
+def gen_spmv(mesh, op, x, s_max=4, dist_format="auto"):
+    """One ``_dist_spmv_any`` product (column 1 of the s = 1 powers for a
+    DistEll / DistPell / DistBsr), gathered."""
+    from ca_lanczos_tpu_torch.parallel.restarted import _dist_spmv_any
+
+    A = _dist_op(mesh, op, s_max, dist_format)
+    return A.gather_columns(_dist_spmv_any(A, A.shard_entry(x), mesh))
+
+
+def comm_gen_powers(mesh, op, s, dist_format="auto"):
+    """The collectives of one s-step powers call on a distributed ELL /
+    PELL / BSR operator on this rank (and its halo)."""
+    from ca_lanczos_tpu_torch.parallel.step import _powers
+
+    A = _dist_op(mesh, op, s, dist_format)
+    x = A.shard_entry(np.ones(A.n))
+    comm.reset()
+    _powers(A, x, np.zeros((s, 2)), s, mesh)
+    return dict(comm.snapshot(), halo=A.halo)
+
+
+def sstep(mesh, data, offsets, r, s, m):
+    """``dist_sstep_lanczos``: the replicated T and the gathered Q."""
+    from ca_lanczos_tpu_torch.parallel.dist_sstep import dist_sstep_lanczos
+
+    res = dist_sstep_lanczos(_dia(data, offsets), r, s, m, mesh)
+    n = np.asarray(r).shape[0]
+    return {"T": res.T, "Q": torch.cat(comm.all_gather(res.Q.contiguous()))[:n]}
+
+
+def spmv_cols(mesh, op, x, s_max=1, periodic=False):
+    """``dist_spmv_cols`` of a global (n, c) multivector, gathered."""
+    from ca_lanczos_tpu_torch.parallel.dist_prop import dist_spmv_cols
+
+    A = _dist_op(mesh, op, s_max, periodic=periodic)
+    return A.gather_columns(dist_spmv_cols(A, A.shard_vector(x), mesh))
+
+
+def propagate(mesh, op, psi0, dt, n_steps, krylov_dim=24, periodic=True, **kw):
+    """``dist_propagate_split`` of a DistDia / DistEll (periodic by
+    default): the final complex psi on the host."""
+    from ca_lanczos_tpu_torch.parallel.dist_prop import dist_propagate_split
+
+    A = _dist_op(mesh, op, 1, periodic=periodic)
+    return dist_propagate_split(A, psi0, dt, n_steps, mesh, krylov_dim=krylov_dim, **kw)

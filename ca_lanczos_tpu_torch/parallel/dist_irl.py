@@ -71,8 +71,10 @@ def dist_impl_restarted_ca_lanczos(
     """Distributed IRL with a CA inner iteration and a full-history
     cleanup per block (the compressed columns are dense mixtures, so the
     trailing block alone is not enough; the single-card driver's
-    orth=FULL).  ``dist_format="ilv"`` runs banded f32 operators on the
-    interleaved engine, state in that domain end to end.  The state dtype
+    orth=FULL).  ``A`` is partitioned by ``step.partition_operator``
+    (DiaMatrix, EllMatrix, BsrMatrix); ``dist_format="ilv"`` runs banded
+    f32 operators on the interleaved engine, state in that domain end to
+    end, and ``"pell"`` an EllMatrix through K4.  The state dtype
     follows the start vector when it is wider than the operator (repeated
     compressions need f64 to keep the basis orthonormal); the kernels run
     in the planes' dtype.  Every rank returns the same result, Q_conv

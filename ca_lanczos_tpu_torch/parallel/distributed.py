@@ -125,8 +125,92 @@ def _window(data: torch.Tensor, lo: int, length: int, periodic: bool) -> torch.T
     return out
 
 
+def _tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
+
+class RowState:
+    """The driver-state contract shared by the distributed operators
+    (DistDia, DistEll, DistPell, DistBsr; the JAX package's
+    ``RowStateMixin``).
+
+    A driver keeps its n-sized state (Krylov blocks, locked basis,
+    histories) in the operator's state domain, ``(state_len[, k])`` rows
+    a rank, and enters and leaves it only at the ends of a solve: the
+    rank's natural rows here, the padded interleaved domain when a
+    DistDia runs the interleaved engine (it overrides :meth:`to_state`,
+    :meth:`local_natural` and ``state_len``).  State is ghost-zero in
+    either domain, so the all-reduced Grams, CGS and TSQR are the same
+    code on every operator.  A subclass gives ``n``, ``mesh``, ``dtype``,
+    ``device`` and ``n_local``; the rank's rows are global rows
+    ``[rank*n_local, (rank+1)*n_local)``."""
+
+    ilv_engine = False
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.size
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.rank
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n, self.n)
+
+    @property
+    def state_len(self) -> int:
+        """Rows of this rank's driver state vectors."""
+        return self.n_local
+
+    def _cast(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The operator's planes ``t`` in ``dtype``: ``t`` itself, or a
+        copy made on the first call and kept (``self._casts``)."""
+        if dtype == t.dtype:
+            return t
+        if dtype not in self._casts:
+            self._casts[dtype] = t.to(dtype)
+        return self._casts[dtype]
+
+    def shard_vector(self, x) -> torch.Tensor:
+        """This rank's rows of a global (n,) or (n, k) host vector,
+        zero-padded, on the rank's device (dtype kept)."""
+        return RowPlacer(self.mesh, block=self.n_local).place(x)
+
+    def to_state(self, rows: torch.Tensor) -> torch.Tensor:
+        """The rank's natural rows (n_local[, k]) -> driver state."""
+        return rows
+
+    def local_natural(self, Q: torch.Tensor) -> torch.Tensor:
+        """This rank's state (state_len[, k]) -> its natural rows (n_local[, k])."""
+        return Q
+
+    def shard_entry(self, x) -> torch.Tensor:
+        """Entry into the driver state domain, in the operator's dtype
+        (a driver that wants wider state, the IRL, upcasts after entry)."""
+        return self.to_state(self.shard_vector(_tensor(x).to(self.dtype)))
+
+    def state_zeros(self, cols: int, dtype=None) -> torch.Tensor:
+        """Zero state, (state_len, cols) (a transposed view of (cols,
+        state_len) rows, so each column is contiguous), or (state_len,)
+        with cols=0."""
+        dtype = self.dtype if dtype is None else dtype
+        if not cols:
+            return torch.zeros(self.state_len, dtype=dtype, device=self.device)
+        return torch.zeros((cols, self.state_len), dtype=dtype, device=self.device).T
+
+    def gather_columns(self, Q) -> np.ndarray:
+        """Exit from the state domain: every rank's rows gathered into the
+        global (n, k) or (n,) host array (natural order, trimmed), on
+        every rank.  Collective."""
+        Qn = self.local_natural(Q)
+        parts = comm.all_gather(Qn.contiguous())
+        return torch.cat(parts, dim=0)[: self.n].cpu().numpy()
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
-class DistDia:
+class DistDia(RowState):
     """This rank's block of a row-sharded DIA operator.
 
     data: (nd, n_local + 2*halo) — global rows [p*n_local - halo,
@@ -146,26 +230,14 @@ class DistDia:
     periodic: bool = False
     ilv_data: Optional[torch.Tensor] = None
     ilv_m_pad: int = 0
-    _cast: dict = dataclasses.field(default_factory=dict, repr=False)
+    _casts: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def planes(self, dtype: torch.dtype) -> torch.Tensor:
         """``data`` in ``dtype``: the planes themselves, or a copy made on
         the first call and kept (wider driver state, the IRL's f64 on f32
         planes, multiplies in its own precision, as the JAX package's
         promotion does)."""
-        if dtype == self.data.dtype:
-            return self.data
-        if dtype not in self._cast:
-            self._cast[dtype] = self.data.to(dtype)
-        return self._cast[dtype]
-
-    @property
-    def n_shards(self) -> int:
-        return self.mesh.size
-
-    @property
-    def rank(self) -> int:
-        return self.mesh.rank
+        return self._cast(self.data, dtype)
 
     @property
     def n_local(self) -> int:
@@ -178,10 +250,6 @@ class DistDia:
     @property
     def device(self) -> torch.device:
         return self.data.device
-
-    @property
-    def shape(self) -> Tuple[int, int]:
-        return (self.n, self.n)
 
     @property
     def bandwidth(self) -> int:
@@ -200,7 +268,6 @@ class DistDia:
 
     @property
     def state_len(self) -> int:
-        """Rows of this rank's driver state vectors."""
         return self.ilv_m_pad if self.ilv_engine else self.n_local
 
     @staticmethod
@@ -231,12 +298,7 @@ class DistDia:
                        halo=halo, n=n, mesh=mesh, periodic=periodic,
                        ilv_data=ilv_data, ilv_m_pad=m_pad)
 
-    # -- entry into and exit from the driver state domain -----------------
-
-    def shard_vector(self, x) -> torch.Tensor:
-        """This rank's rows of a global (n,) or (n, k) host vector,
-        zero-padded, on the rank's device (dtype kept)."""
-        return RowPlacer(self.mesh).place(x)
+    # -- the interleaved engine's state domain ------------------------------
 
     def ilv_shard_vector(self, x) -> torch.Tensor:
         """Entry into the padded interleaved domain: this rank's
@@ -245,35 +307,13 @@ class DistDia:
             raise ValueError("operator built without ilv=True")
         return ilv_pad_state(self, ilv_encode(self.shard_vector(x)))
 
-    def shard_entry(self, x) -> torch.Tensor:
-        """Entry into the driver state domain, in the operator's dtype
-        (a driver that wants wider state, the IRL, upcasts after entry)."""
-        t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
-        t = t.to(self.dtype)
-        return self.ilv_shard_vector(t) if self.ilv_engine else self.shard_vector(t)
-
-    def state_zeros(self, cols: int, dtype=None) -> torch.Tensor:
-        """Zero state, (state_len, cols) (a transposed view of (cols,
-        state_len) rows, so each column is contiguous), or (state_len,)
-        with cols=0."""
-        dtype = self.dtype if dtype is None else dtype
-        if not cols:
-            return torch.zeros(self.state_len, dtype=dtype, device=self.device)
-        return torch.zeros((cols, self.state_len), dtype=dtype, device=self.device).T
+    def to_state(self, rows: torch.Tensor) -> torch.Tensor:
+        return ilv_pad_state(self, ilv_encode(rows)) if self.ilv_engine else rows
 
     def local_natural(self, Q: torch.Tensor) -> torch.Tensor:
-        """This rank's state (state_len[, k]) -> its natural rows (n_local[, k])."""
         if not self.ilv_engine:
             return Q
         return ilv_decode(ilv_unpad_state(self, Q))
-
-    def gather_columns(self, Q) -> np.ndarray:
-        """Exit from the state domain: every rank's rows gathered into the
-        global (n, k) or (n,) host array (natural order, trimmed), on
-        every rank.  Collective."""
-        Qn = self.local_natural(Q)
-        parts = comm.all_gather(Qn.contiguous())
-        return torch.cat(parts, dim=0)[: self.n].cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

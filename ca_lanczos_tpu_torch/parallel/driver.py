@@ -43,7 +43,7 @@ class DistCaLanczosResult:
     Q_blocks: List[torch.Tensor]  # this rank's rows of each basis block
     beta: np.ndarray
     n: int  # true (unpadded) dimension
-    op: Optional[DistDia] = None  # the partitioned operator (decodes .Q)
+    op: Optional[object] = None  # the partitioned operator (decodes .Q)
 
     @property
     def Q(self) -> np.ndarray:
@@ -75,10 +75,13 @@ def dist_ca_lanczos(
     against the zero-padded history; PERIODIC does so when the host omega
     recurrence says (ca_lanczos.m:430-446); SELECTIVE tracks converged
     Ritz vectors in a fixed-width padded basis (ca_lanczos.m:317-336).
-    ``A`` is a DiaMatrix (every rank passes the same) or a DistDia; the
-    Newton basis needs an explicit ``Bk``.  ``dist_format="ilv"`` runs the
-    interleaved engine (f32 banded): the state lives in the ghost-zeroed
-    padded interleaved domain, where Gram/CGS/QR are layout-invariant."""
+    ``A`` is a DiaMatrix, EllMatrix or BsrMatrix (every rank passes the
+    same; ``step.partition_operator`` distributes it) or a distributed
+    operator; the Newton basis needs an explicit ``Bk``.
+    ``dist_format="ilv"`` runs the interleaved engine (f32 banded): the
+    state lives in the ghost-zeroed padded interleaved domain, where
+    Gram/CGS/QR are layout-invariant; ``"pell"`` runs an EllMatrix through
+    K4 on each rank's window (DistPell)."""
     from ca_lanczos_tpu_torch.config import Orth
     from ca_lanczos_tpu_torch.ops.spmv import normest
     from ca_lanczos_tpu_torch.parallel.restarted import (

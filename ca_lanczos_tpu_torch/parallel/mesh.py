@@ -136,16 +136,19 @@ def row_axes(mesh: Mesh) -> RowAxes:
 @dataclasses.dataclass(frozen=True)
 class RowPlacer:
     """Places the rank's block of dimension ``dim`` of a host array (split
-    in ``mesh.size`` equal blocks, zero-padded to a multiple of them)."""
+    in ``mesh.size`` equal blocks, zero-padded to a multiple of them), or,
+    with ``block``, rows ``[rank*block, (rank+1)*block)`` zero-padded (a
+    block-row operator's shards hold whole block rows)."""
 
     mesh: Mesh
     dim: int = 0
+    block: Optional[int] = None
 
     def place(self, x) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
         n = t.shape[self.dim]
         P = self.mesh.size
-        nl = -(-n // P)
+        nl = -(-n // P) if self.block is None else self.block
         lo = self.mesh.rank * nl
         blk = t.narrow(self.dim, min(lo, n), max(0, min(nl, n - lo)))
         if blk.shape[self.dim] < nl:

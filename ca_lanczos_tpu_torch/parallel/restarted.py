@@ -27,7 +27,7 @@ from ca_lanczos_tpu_torch.ops.spmv import normest
 from ca_lanczos_tpu_torch.parallel.dist_orth import local_gram, local_norm, local_project
 from ca_lanczos_tpu_torch.parallel.distributed import DistDia, _coefs, dist_spmv, dist_spmv_ilv
 from ca_lanczos_tpu_torch.parallel.mesh import Mesh
-from ca_lanczos_tpu_torch.parallel.step import _powers, newton_coeffs, orth_qr
+from ca_lanczos_tpu_torch.parallel.step import _powers, local_rows, newton_coeffs, orth_qr
 from ca_lanczos_tpu_torch.solvers._block import block_T, extend_T, first_block_T
 from ca_lanczos_tpu_torch.solvers.ca_lanczos import build_basis_matrix, monomial_basis_matrix
 from ca_lanczos_tpu_torch.solvers.restarted import (
@@ -45,13 +45,14 @@ _STALL_CYCLES = 5
 
 def _dist_spmv_any(Adist, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """One distributed product; on the interleaved engine x is
-    padded-domain state and so is the result.  DistDia only in this slice
-    of the port."""
-    if not isinstance(Adist, DistDia):
-        raise TypeError(f"distributed SpMV of a {type(Adist).__name__} is not ported yet")
-    if Adist.ilv_engine:
-        return dist_spmv_ilv(Adist, x, mesh)
-    return dist_spmv(Adist, x, mesh)
+    padded-domain state and so is the result.  DistDia: ``dist_spmv``
+    (K2) or ``dist_spmv_ilv`` (K3 at s = 1); DistEll / DistPell / DistBsr:
+    column 1 of their s = 1 powers, as in the JAX package."""
+    if isinstance(Adist, DistDia):
+        if Adist.ilv_engine:
+            return dist_spmv_ilv(Adist, x, mesh)
+        return dist_spmv(Adist, x, mesh)
+    return local_rows(Adist, x, _coefs(None, None, 1), 1, mesh, include_q=False)[0]
 
 
 def _dist_first_block_locked(A, q, Qconv, diag, sub, s: int, mesh: Mesh,

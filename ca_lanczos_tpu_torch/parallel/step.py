@@ -3,7 +3,8 @@
 Counterpart of ``ca_lanczos_tpu/parallel/step.py``.  One call is one outer
 CA iteration's device work on every rank:
 
-    halo exchange  ->  s local products (K1 / K3)       [matrix powers]
+    halo exchange  ->  s local products (K1 / K3 / K4,   [matrix powers]
+                       or the ELL / BSR product)
     all-reduced Gram + 2x block CGS  ->  TSQR            [block orth]
 
 The O(s^2) T assembly from the replicated R factors stays on the host
@@ -17,7 +18,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ca_lanczos_tpu_torch.parallel.dist_bsr import DistBsr, _bsr_powers_local
+from ca_lanczos_tpu_torch.parallel.dist_ell import DistEll, _ell_powers_local
 from ca_lanczos_tpu_torch.parallel.dist_orth import local_project, local_qr, local_qr_safe
+from ca_lanczos_tpu_torch.parallel.dist_pell import DistPell, _pell_powers_local
 from ca_lanczos_tpu_torch.parallel.distributed import (
     DistDia,
     _coefs,
@@ -30,24 +34,47 @@ from ca_lanczos_tpu_torch.parallel.distributed import (
 )
 from ca_lanczos_tpu_torch.parallel.mesh import Mesh
 
-# The slice of the port that brings the other distributed operators.
-_SLICE2 = ("DistEll, DistPell and DistBsr come with the second slice of the "
-           "distributed layer (ROADMAP queue A.2); route banded matrices to a "
-           "DiaMatrix")
+# The local powers of each operator on the natural (row) state: one halo
+# exchange + s local steps -> rows (s+1, n_local), or (s, n_local) with
+# include_q=False.
+_LOCAL_ROWS = {
+    DistDia: _powers_local,
+    DistEll: _ell_powers_local,
+    DistPell: _pell_powers_local,
+    DistBsr: _bsr_powers_local,
+}
 
 
 def partition_operator(A, mesh: Mesh, s_max: int, dist_format: str = "auto"):
-    """This rank's block of a host operator.  DiaMatrix -> DistDia (the
-    interleaved engine with ``dist_format="ilv"``, which raises when the
-    shard admits no interleaved layout); a DistDia passes through."""
+    """This rank's block of a host operator, as the JAX package partitions
+    it (one rule for every distributed driver):
+
+    * DiaMatrix -> DistDia, on the interleaved engine with
+      ``dist_format="ilv"`` (which raises when the shard admits no
+      interleaved layout);
+    * EllMatrix -> DistPell with ``dist_format="pell"`` (K4 on the rank's
+      window), refused for "ilv", else DistEll;
+    * BsrMatrix -> DistBsr, refused for "ilv" and "pell";
+    * a distributed operator passes through."""
     from ca_lanczos_tpu_torch.ops.bsr import BsrMatrix
-    from ca_lanczos_tpu_torch.ops.pell import PellMatrix
     from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix, EllMatrix
 
-    if isinstance(A, DistDia):
+    if isinstance(A, tuple(_LOCAL_ROWS)):
         return A
-    if isinstance(A, (EllMatrix, BsrMatrix, PellMatrix)):
-        raise ValueError(f"cannot distribute a {type(A).__name__} yet: {_SLICE2}")
+    if isinstance(A, BsrMatrix):
+        if dist_format in ("ilv", "pell"):
+            raise ValueError(
+                f"dist_format={dist_format!r} is not a BSR engine; block operators "
+                "distribute as DistBsr (dist_format='auto')")
+        return DistBsr.from_bsr(A, mesh, s_max=s_max)
+    if isinstance(A, EllMatrix):
+        if dist_format == "pell":
+            return DistPell.from_ell(A, mesh, s_max=s_max)
+        if dist_format == "ilv":
+            raise ValueError(
+                "dist_format='ilv' is the banded-DIA interleaved engine; this operator is "
+                "an EllMatrix: use dist_format='pell' (K4 local step) or 'auto'")
+        return DistEll.from_ell(A, mesh, s_max=s_max)
     if isinstance(A, DiaMatrix):
         if dist_format == "ilv":
             Ad = DistDia.from_dia(A, mesh, s_max=s_max, ilv=True)
@@ -56,18 +83,25 @@ def partition_operator(A, mesh: Mesh, s_max: int, dist_format: str = "auto"):
                     "dist_format='ilv': shard shape admits no interleaved "
                     "layout (need f32, n_local % 1024 == 0, s*w <= 1024)")
             return Ad
-        if dist_format in ("pell", "ell"):
-            raise ValueError(f"dist_format={dist_format!r}: {_SLICE2}")
         return DistDia.from_dia(A, mesh, s_max=s_max)
     raise TypeError(
         f"cannot distribute operator of type {type(A).__name__}; pass a "
-        "DiaMatrix (route raw matrices via parallel.auto.route_dist_operator)")
+        "DiaMatrix, EllMatrix or BsrMatrix (route raw matrices via "
+        "parallel.auto.route_dist_operator)")
 
 
-def _powers(A: DistDia, x_local: torch.Tensor, coefs: np.ndarray, s: int,
+def local_rows(A, x_local: torch.Tensor, coefs: np.ndarray, s: int, mesh: Mesh,
+               include_q: bool = True) -> torch.Tensor:
+    """The natural-state powers rows of any distributed operator (see
+    ``_LOCAL_ROWS``)."""
+    return _LOCAL_ROWS[type(A)](A, x_local, coefs, s, mesh, include_q=include_q)
+
+
+def _powers(A, x_local: torch.Tensor, coefs: np.ndarray, s: int,
             mesh: Mesh) -> torch.Tensor:
     """[x, p_1(A)x, ..., p_s(A)x] as this rank's (state_len, s+1) block (a
-    transposed view of rows), on either engine.
+    transposed view of rows), for every distributed operator and engine
+    (the JAX package's ``_local_powers_fn``).
 
     Interleaved engine: x is ghost-zero padded-domain state; the kernel
     runs in the planes' dtype (the state may be wider: the IRL's f64), the
@@ -78,10 +112,10 @@ def _powers(A: DistDia, x_local: torch.Tensor, coefs: np.ndarray, s: int,
         V2, _ = ilv_padded_powers(A, x_local, coefs, s, mesh)
         ilv_zero_ghosts(A, V2)
         return torch.cat([x_local[None, :], V2.to(x_local.dtype)], dim=0).T
-    return _powers_local(A, x_local, coefs, s, mesh).T
+    return local_rows(A, x_local, coefs, s, mesh).T
 
 
-def orth_qr(A: DistDia, X: torch.Tensor, qr_method: str, mp: bool, mesh: Mesh,
+def orth_qr(A, X: torch.Tensor, qr_method: str, mp: bool, mesh: Mesh,
             safe: bool = False, key: int = 0):
     """``local_qr`` (``local_qr_safe`` with ``safe``, which also returns the
     rank) of a state block.  On the interleaved engine the QR sees the
@@ -111,7 +145,7 @@ def newton_coeffs(Bk: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return diag, sup
 
 
-def dist_first_block(A: DistDia, q: torch.Tensor, diag, sub, s: int, mesh: Mesh,
+def dist_first_block(A, q: torch.Tensor, diag, sub, s: int, mesh: Mesh,
                      qr_method: str = "tsqr", mp: bool = False):
     """First CA block: V = powers(q); [Q, R] = TSQR(V) (ca_lanczos.m:176-182).
     Returns (Q (state_len, s+1), R (s+1, s+1) host f64)."""
@@ -119,7 +153,7 @@ def dist_first_block(A: DistDia, q: torch.Tensor, diag, sub, s: int, mesh: Mesh,
     return orth_qr(A, V, qr_method, mp, mesh)
 
 
-def dist_ca_block(A: DistDia, Q_prev: torch.Tensor, diag, sub, s: int, mesh: Mesh,
+def dist_ca_block(A, Q_prev: torch.Tensor, diag, sub, s: int, mesh: Mesh,
                   qr_method: str = "tsqr", mp: bool = False):
     """One CA block k>1 (ca_lanczos.m:185-214, device part): powers from
     Q_prev's last column, two CGS passes against Q_prev, TSQR.  Returns

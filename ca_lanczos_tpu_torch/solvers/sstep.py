@@ -12,7 +12,8 @@ that a distributed driver can reuse the host recurrence over row-sharded
 operands: ``powers`` is ``matrix_powers_monomial`` (K1, or K2 steps, on a
 real DIA operator on the card), ``dots`` one Gram GEMM P^H P of the
 (n, s+1) block read once by the host, ``next_p1`` and ``basis_update``
-GEMMs.  Blocks are (n, k) tensors, as the seam's JAX contract has them.
+GEMMs, ``norm`` the start vector's 2-norm (a distributed driver's
+reduces over the ranks).  Blocks are (n, k) tensors, as the seam's JAX contract has them.
 The s x s solves and the index-heavy coefficient assembly are host float64
 numpy, copied 1:1 (0-based) from the JAX package.
 """
@@ -60,6 +61,9 @@ class _LocalOps:
     def __init__(self, H: Operator):
         self.H = H
 
+    def norm(self, r0):
+        return float(torch.linalg.norm(r0))
+
     def powers(self, p1, s):
         return matrix_powers_monomial(self.H, p1, s)
 
@@ -87,13 +91,13 @@ def _sstep_core(H: Operator, r0: torch.Tensor, s: int, m: int, ops=None):
     ||r0||).  Block lists are MATLAB-style 1-based (index 0 unused) so the
     reference's cell indexing (E{k-1}, G{k}, F{k}) maps 1:1.
 
-    ``ops`` injects the device operations (powers / dots / next_p1 /
-    basis_update), so a distributed driver reuses this exact host
+    ``ops`` injects the device operations (norm / powers / dots / next_p1
+    / basis_update), so a distributed driver reuses this exact host
     recurrence.
     """
     if ops is None:
         ops = _LocalOps(H)
-    nrm = float(torch.linalg.norm(r0))
+    nrm = ops.norm(r0)
     p1 = r0 / nrm
 
     E = [np.zeros((s, s)) for _ in range(m + 2)]

@@ -18,7 +18,10 @@ operators.  Recognised by their fields:
 
 ``dist_dia_from_numpy`` does the same for a distributed ``DistDia``: it
 builds this rank's block of the port's ``parallel.DistDia`` from the JAX
-operator's per-shard planes.
+operator's per-shard planes; ``dist_operator_from_numpy`` for any of the
+JAX package's distributed operators (``DistDia``, ``DistEll``,
+``DistPell``, ``DistBsr``), so that a test feeds JAX's own partition to
+the port.
 """
 
 from __future__ import annotations
@@ -89,3 +92,40 @@ def dist_dia_from_numpy(A, mesh, ilv: bool = False):
     return DistDia(data=torch.from_numpy(np.ascontiguousarray(data[p])).to(mesh.device),
                    offsets=offsets, halo=halo, n=n, mesh=mesh, periodic=periodic,
                    ilv_data=ilv_data, ilv_m_pad=m_pad)
+
+
+def dist_operator_from_numpy(A, mesh, ilv: bool = False):
+    """This rank's port operator from a JAX distributed operator's stacked
+    per-shard planes (shard p = ``mesh.rank``), recognised by its fields:
+
+    * ``DistPell`` (``span_row``) — the shard's planes as a unit-encoded
+      ``PellMatrix`` of the (m x m) window (the JAX package pads every
+      shard to common statics: zero-valued no-op slots, kept as they are);
+    * ``DistBsr`` (``halo_b``) — the shard's tiles and local block columns;
+    * ``DistEll`` (``vals``, ``cols``) — the shard's ELL window;
+    * ``DistDia`` (``data``) — :func:`dist_dia_from_numpy`."""
+    from ca_lanczos_tpu_torch.parallel.dist_bsr import DistBsr
+    from ca_lanczos_tpu_torch.parallel.dist_ell import DistEll
+    from ca_lanczos_tpu_torch.parallel.dist_pell import DistPell
+
+    if hasattr(A, "data") and hasattr(A, "offsets"):
+        return dist_dia_from_numpy(A, mesh, ilv=ilv)
+    P, p, dev = np.shape(A.vals)[0], mesh.rank, mesh.device
+    if P != mesh.size:
+        raise ValueError(f"operator has {P} shards, the mesh {mesh.size} ranks")
+    s_max = int(getattr(A, "s_max", 0))
+    if hasattr(A, "span_row"):
+        vals = np.asarray(A.vals)[p]
+        W = PellMatrix(vals=_t(vals, dev), lidx=_t(np.asarray(A.lidx)[p], dev),
+                       cbase=_t(np.asarray(A.cbase)[p], dev),
+                       span_row=_t(np.asarray(A.span_row)[p], dev), n=int(A.m),
+                       tile=int(A.tile), k_slots=int(A.k_slots), sw=int(A.sw),
+                       nnz_count=int(np.count_nonzero(vals)), n_win=int(A.n_win), enc="unit")
+        return DistPell(A=W, halo=int(A.halo), n=int(A.n), mesh=mesh,
+                        periodic=bool(A.periodic), s_max=s_max)
+    vals, cols = _t(np.asarray(A.vals)[p], dev), _t(np.asarray(A.cols)[p], dev, torch.int64)
+    if hasattr(A, "halo_b"):
+        return DistBsr(vals=vals, cols=cols, halo_b=int(A.halo_b), n=int(A.n), mesh=mesh,
+                       s_max=s_max)
+    return DistEll(vals=vals, cols=cols, halo=int(A.halo), n=int(A.n), mesh=mesh,
+                   periodic=bool(A.periodic), s_max=s_max)

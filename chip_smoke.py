@@ -89,9 +89,9 @@ Phase H  BASELINE.json configs[4] on one card: exp/bsr_10m_e2e.py:59-84's
          ``lanczos`` over 12 steps to rtol 1e-5, and its monomial powers
          (f64 K1 at 31 diagonals) equal the plain recurrence to 1e-12 per
          column and step (``check_powers``).  The JAX package runs this
-         configuration only through its ``parallel/`` drivers, which the
-         port has not taken over yet; here it is the single-card host
-         driver.  Phase 1 also prints K1 at this DIA shape for s in
+         configuration only through its ``parallel/`` drivers; here it is
+         the single-card host driver, and phase K(c) runs the distributed
+         ones.  Phase 1 also prints K1 at this DIA shape for s in
          {2, 4, 8, 16} (configs[4]'s sweep) beside s x one BSR matvec of
          the port and s x one torch.sparse CSR matvec (and the BSR product
          as one torch.bmm of one column, for comparison).
@@ -154,8 +154,9 @@ Phase J  the distributed layer (``ca_lanczos_tpu_torch.parallel``) on
          and at s = 1, the locking and true-residual products, on the
          interleaved engine; K1 at s = 8 and K2 on the natural engine, in
          the solve's dtype) at the shard's padded shape against the plain
-         version (1e-5 f32, 1e-12 f64) and times both, and each must be
-         launched by the solve;
+         version (1e-5 f32, 1e-12 f64) and times both, beside one
+         torch.sparse CSR matvec of the shard, and each must be launched by
+         the solve;
          after it, the collectives of one CA block (exchanges, halo
          elements, all-reduces, all-gathers: ``parallel.comm``) and
          ``cross_device_consistency`` of the replicated R (must be 0).
@@ -167,13 +168,49 @@ Phase J  the distributed layer (``ca_lanczos_tpu_torch.parallel``) on
          writes (TMPDIR), each a subprocess that must exit 0 with one JSON
          record (the solve: converged, top 3 within rtol 1e-7 of the dense
          oracle).
+Phase K  the distributed layer's second slice: one ``parallel.runtime.
+         spawn`` (NCCL, P = min(4, cards); the rank work is ``parallel.
+         smoke.phase_k_rank``; its inputs are written to TMPDIR first).
+         Each rank first holds every kernel its solves run at its own
+         operands' shapes against the plain version (1e-5 f32, 1e-12 f64)
+         and times it beside its bound and one torch.sparse CSR matvec of
+         the same shard, and each must then be launched by its solve.
+         (a) ``dist_solve_auto`` on phases C/D's PELL oracle matrix
+         (11,010,048 rows, 84,156,726 nnz, f32, bandwidth 8) with
+         max_diags=16 (17 diagonals: not DIA), so the route is "pell": a
+         DistPell, K4 on each rank's unit-encoded window of n_local + 2 x
+         64 rows; path A's recipe (n_wanted=10, s=8, tol=1e-4,
+         max_restarts=200, polish=10, over_lock=3, max_lanczos=32); label
+         "dist_restarted_ca_lanczos+polish10", converged, not escalated,
+         max |eig - oracle| / ||A|| <= 1e-6.  K4 held at the window: the 8
+         chained steps and the one-step product.  Printed: the route's and
+         the window's encode seconds, restarts, stages, launches, peak
+         memory, one CA block's collectives.  (b) ``dist_ca_lanczos`` (s=4,
+         24 steps, monomial) on the same EllMatrix as a DistEll
+         (dist_format="ell": the gather) and as a DistPell (K4 at s = 4):
+         the top 10 Ritz values agree to 1e-5 of ||A||.  (c) BASELINE.json
+         configs[4] through the distributed drivers (exp/bsr_10m_e2e.py:
+         96-146): phase H's planted BSR (n = 10,485,760, 8x8 tiles, f32) as
+         a DistBsr, ``dist_bsr_matrix_powers`` (s=4) timed beside the
+         single card's BSR powers (and equal to them to 1e-5),
+         ``dist_restarted_ca_lanczos(A, x, 16, LanczosConfig(s=4,
+         n_wanted=3, tol=1e-4, max_restarts=30))`` (converged, top-3
+         relative error <= 1e-6), and ``dist_sstep_lanczos`` (s=4, m=3) on
+         its f64 DIA form (31 diagonals: K1 smem, K2) against the single
+         card's ``sstep_lanczos``: max |dT| / max |T| <= 1e-10.  (d)
+         ``dist_propagate_split`` of phase G(b)'s oscillator (4,194,304
+         rows) as a 5-offset circulant f64 DistDia (``periodic=True``,
+         s_max=1; K2 a column on the padded shard), 20 time steps, Krylov
+         24, G(b)'s dt, against the single card's ``propagate_split`` on
+         G(b)'s operator: max |dpsi| / max |psi| <= 1e-8, norm drift <=
+         1e-10.
 
 Phases 2 and 3, C and D use engine="fused"; paths A-D check the label
 "restarted_ca_lanczos+polish10", E the same at the host engine, F
 "impl_restarted_ca_lanczos+polish10"; none may escalate.  Every launch
 counter is set to 0 just before each main path (A-F, each form of G, each
 route of H, the CLI solve, each corpus member and each profiling chain of
-I, each solve of J in its rank's process) and read just after it; a
+I, each solve of J and K in its rank's process) and read just after it; a
 kernel's ``launches`` is the sum over them.
 Any failed check raises (exit code != 0).  The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.
@@ -300,28 +337,6 @@ def check_bound(kname: str, dt: str, ms: float, bms: float) -> None:
                              f"({ms:.4f} ms < {bms:.4f} ms)")
 
 
-def pell_bytes(torch, A):
-    """(bytes a PELL step must move, bytes of the full planes + vectors).
-    Unit encoding: the occupied prefix of each group's slots of vals, lidx
-    and cbase, plus the per-group counts and span_row; grouped: every
-    plane.  Both add x (n_x) and v_prev read once, y (n_pad) written once.
-    The occupied prefix is taken from vals itself, so it counts what the
-    function needs whichever kernel runs."""
-    item = A.vals.element_size()
-    vectors = (A.n_x + 2 * A.n_pad) * item
-    full = sum(t.numel() * t.element_size()
-               for t in (A.vals, A.lidx, A.cbase, A.span_row)) + vectors
-    if A.enc != "unit":
-        return full, full
-    groups = A.ntiles * (A.tile // 128)
-    occ = (A.vals.reshape(A.ntiles, A.k_slots, A.tile // 128, 128) != 0).any(dim=3)
-    ordinal = torch.arange(1, A.k_slots + 1, device=occ.device)[None, :, None]
-    slots = int((occ * ordinal).amax(dim=1).sum())
-    need = (slots * (128 * (item + A.lidx.element_size()) + 4) + groups * 4
-            + A.span_row.numel() * 4 + vectors)
-    return need, full
-
-
 def check_row(torch, kname, dt, got, ref):
     err = rel_err(torch, got, ref)
     abs_err = float((got - ref).abs().max())
@@ -421,21 +436,21 @@ def phase1_dia(torch):
     coefs = newton_coefs(torch, data, offsets, x, s)
     log(f"newton coefs: shifts {np.round(coefs[:, 0], 4).tolist()} "
         f"subs {np.round(coefs[:, 1], 6).tolist()}")
-    # the library yardstick: one CSR matvec of the same matrix, f32
+    # the library yardstick: one CSR matvec of the same matrix, per dtype
     rows = [np.arange(max(0, -o), min(n, n - o)) for o in offsets]
     csr = sp.csr_matrix((np.concatenate([data[d, r] for d, r in enumerate(rows)]),
                          (np.concatenate(rows),
                           np.concatenate([r + o for r, o in zip(rows, offsets)]))), (n, n))
-    Acsr = csr_library(torch, csr, torch.float32)
-    xl = torch.as_tensor(x, device="cuda")
-    csr_ms = time_ms(torch, lambda: Acsr @ xl)
-    log(f"library: torch.sparse CSR f32 matvec (n={n}, nnz={csr.nnz}) {csr_ms:.4f} ms; "
-        f"s x CSR = {s * csr_ms:.4f} ms")
-    del Acsr, csr, xl
 
     out = []
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
+        Acsr = csr_library(torch, csr, dt)
+        xl = torch.as_tensor(x, dtype=dt, device="cuda")
+        csr_ms = time_ms(torch, lambda: Acsr @ xl)
+        log(f"library: torch.sparse CSR {name} matvec (n={n}, nnz={csr.nnz}) {csr_ms:.4f} ms; "
+            f"s x CSR = {s * csr_ms:.4f} ms")
+        del Acsr, xl
         item = torch.empty((), dtype=dt).element_size()
         D = torch.as_tensor(data, dtype=dt, device="cuda")
         X = torch.as_tensor(x, dtype=dt, device="cuda")
@@ -470,6 +485,7 @@ def phase1_dia(torch):
                                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                 bound_by=by, library_ms=lib_ms))
         del D, X, P, D_il, X_il
+    del csr
     torch.cuda.empty_cache()
 
     # K1 at main path A's shape too (printed only: its JSON row is bench.py's)
@@ -554,14 +570,18 @@ def phase1_pell(torch, a32):
     from ca_lanczos_tpu_torch.ops import cuda_pell, pell
 
     n = a32.shape[0]
-    Acsr = csr_library(torch, a32, torch.float32)
     rng = np.random.default_rng(7)
     x = np.asarray(rng.standard_normal(n), np.float32)
     vp = np.asarray(rng.standard_normal(n), np.float32)
-    xl = torch.as_tensor(x, device="cuda")
-    csr_ms = time_ms(torch, lambda: Acsr @ xl)
-    log(f"library: torch.sparse CSR f32 matvec (n={n}, nnz={a32.nnz}) {csr_ms:.4f} ms")
-    del Acsr, xl
+    csr_ms = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        Acsr = csr_library(torch, a32, dt)
+        xl = torch.as_tensor(x, dtype=dt, device="cuda")
+        csr_ms[name] = time_ms(torch, lambda: Acsr @ xl)
+        log(f"library: torch.sparse CSR {name} matvec (n={n}, nnz={a32.nnz}) "
+            f"{csr_ms[name]:.4f} ms")
+        del Acsr, xl
     d, sb = 0.7, -0.3
     out = []
     for request in ("unit", "auto", "grouped4"):
@@ -586,7 +606,7 @@ def phase1_pell(torch, a32):
             err, abs_err = check_row(torch, f"{kname}/{enc}", name, kern(), plain())
             ms = time_ms(torch, kern)
             plain_ms = time_ms(torch, plain)
-            nbytes, full = pell_bytes(torch, A)
+            nbytes, full = pell.pell_step_bytes(A)
             bms, by = bound_ms(nbytes, 2 * a32.nnz + 4 * A.n_pad, name)
             log(f"kernel {kname} [{enc}, {name}] n={n} K={A.k_slots}: rel_err={err:.3e} "
                 f"(bound {BOUND[name]:.0e}) abs_err={abs_err:.3e} kernel {ms:.4f} ms "
@@ -594,14 +614,14 @@ def phase1_pell(torch, a32):
                 f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s) plain {plain_ms:.4f} ms "
                 f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB; {bms / ms:.0%} of it; "
                 f"full planes {full / 1e6:.1f} MB, {bound_ms(full, 0, name)[0]:.4f} ms) "
-                f"library {csr_ms:.4f} ms")
+                f"library {csr_ms[name]:.4f} ms")
             check_bound(f"{kname}/{enc}", name, ms, bms)
             if dt == torch.float32 and enc != "grouped4":
                 out.append(dict(name=kname, route="cuda",
                                 source="ca_lanczos_tpu_torch/csrc/pell.cu",
                                 replaces="ca_lanczos_tpu/ops/pell.py:1030",
                                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                bound_by=by, library_ms=csr_ms))
+                                bound_by=by, library_ms=csr_ms[name]))
             del A, X, P
         del A32
         torch.cuda.empty_cache()
@@ -1303,11 +1323,14 @@ def phase_j(torch, totals: dict, paths: dict, rows: list, n: int = 11010048) -> 
                 totals[key] = totals.get(key, 0) + v
             for k in o[i]["kernels"]:
                 bms, bby = bound_ms(k["nbytes"], k["flops"], k["dtype"])
+                lib = ("not measured" if k["library_ms"] is None
+                       else f"{k['library_ms']:.4f} ms")
                 log(f"{label} rank {rank}: kernel {k['name']} [{k['dtype']}] at the shard's "
                     f"shape {tuple(k['shape'])} s={k['s']}: rel_err={k['rel_err']:.3e} "
                     f"(bound {BOUND[k['dtype']]:.0e}) abs_err={k['max_abs_err']:.3e} kernel "
                     f"{k['ms']:.4f} ms plain {k['plain_ms']:.4f} ms bound {bms:.4f} ms "
-                    f"({bby}; {bms / k['ms']:.0%} of it) [phase 1 f32 at bench.py's operator: "
+                    f"({bby}; {bms / k['ms']:.0%} of it) library (one CSR matvec of the "
+                    f"shard) {lib} [phase 1 f32 at bench.py's operator: "
                     f"{by[k['name']]['ms']:.4f} ms, bound {by[k['name']]['bound_ms']:.4f} ms]")
                 if not k["ok"]:
                     failed.append(f"{label} rank {rank}: {k['name']} s={k['s']} disagrees "
@@ -1384,6 +1407,151 @@ def phase_j(torch, totals: dict, paths: dict, rows: list, n: int = 11010048) -> 
         raise AssertionError(f"J(d) solve --mesh failed: {rec} {proc.stderr[-2000:]}")
 
 
+def _k_kernels(label: str, rank: int, rows: list, launches: dict, failed: list) -> None:
+    """Log phase K's kernel rows of one rank (checked against the plain
+    version on the rank's operands, each timed beside its bound and the
+    library product) and record what failed: a disagreement, a kernel the
+    solve did not launch, a time under the bound."""
+    for k in rows:
+        bms, bby = bound_ms(k["nbytes"], k["flops"], k["dtype"])
+        lib = "not measured" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
+        log(f"{label} rank {rank}: kernel {k['name']} [{k['dtype']}] at {tuple(k['shape'])} "
+            f"s={k['s']}: rel_err={k['rel_err']:.3e} (bound {BOUND[k['dtype']]:.0e}) "
+            f"abs_err={k['max_abs_err']:.3e} kernel {k['ms']:.4f} ms plain {k['plain_ms']:.4f} "
+            f"ms bound {bms:.4f} ms ({bby}; {bms / k['ms']:.0%} of it) library (one CSR "
+            f"matvec of the shard) {lib}")
+        if not k["ok"]:
+            failed.append(f"{label} rank {rank}: {k['name']} s={k['s']} disagrees "
+                          f"({k['rel_err']:.3e})")
+        if launches.get(k["name"], 0) == 0:
+            failed.append(f"{label} rank {rank}: {k['name']} not launched")
+        check_bound(f"{k['name']} s={k['s']} ({label})", k["dtype"], k["ms"], bms)
+
+
+def phase_k(torch, totals: dict, a32, pell_exact, nb: int = BSR_NB, n_osc: int = PROP_N):
+    """The distributed layer's second slice on the card (module docstring,
+    phase K): one spawn of ``parallel.smoke.phase_k_rank``."""
+    import tempfile
+
+    import scipy.sparse as sp
+
+    from ca_lanczos_tpu_torch.parallel.runtime import spawn
+    from ca_lanczos_tpu_torch.parallel.smoke import phase_k_rank
+
+    P = min(4, torch.cuda.device_count())
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        inputs = {"pell": os.path.join(tmp, "pell.npz"), "bsr": os.path.join(tmp, "bsr.npz"),
+                  "osc_n": n_osc}
+        sp.save_npz(inputs["pell"], a32, compressed=False)
+        vals, cols, top = planted_block_tridiag(nb)
+        np.savez(inputs["bsr"], vals=vals, cols=cols, top=top)
+        del vals, cols
+        log(f"K: inputs written in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        outs = spawn(phase_k_rank, P, "cuda", inputs, BOUND, timeout=900)
+    log(f"K: {P} rank(s), NCCL; K(a)-K(d) in {time.perf_counter() - t0:.1f}s "
+        "(spawn and kernel checks included)")
+    failed = []
+    norm_a = abs(float(pell_exact[0]))
+    for rank, o in enumerate(outs):
+        for part, launches in (("a", o["a"]["launches"]), ("b", o["b"]["launches"]),
+                               ("c", o["c"]["launches"]), ("c", o["c"]["sstep_launches"]),
+                               ("d", o["d"]["launches"])):
+            for key, v in launches.items():
+                totals[key] = totals.get(key, 0) + v
+        _k_kernels("K(a)", rank, o["a"]["kernels"], o["a"]["launches"], failed)
+        _k_kernels("K(b)", rank, o["b"]["kernels"], o["b"]["launches"], failed)
+        _k_kernels("K(c) sstep", rank, o["c"]["kernels"], o["c"]["sstep_launches"], failed)
+        _k_kernels("K(d)", rank, o["d"]["kernels"], o["d"]["launches"], failed)
+    a, b, c, d = (outs[0][k] for k in "abcd")
+
+    # K(a): general sparsity end to end through dist_solve_auto
+    got = np.sort(np.asarray(a["eigs"]))[::-1]
+    err = (float(np.max(np.abs(got - pell_exact))) / norm_a if len(got) == 10
+           else float("inf"))
+    log(f"K(a) dist_solve_auto (max_diags=16): n={a['n']} nnz={a['nnz']} route={a['format']} "
+        f"solver={a['label']} converged={a['converged']} escalated={a['escalated']} "
+        f"n_restarts={a['restarts']} eig_rel_err={err:.3e} (bound 1e-6) "
+        f"max_polish_resid/|A|={float(np.max(a['polish_resid'])) / norm_a:.3e}; "
+        f"notes {a['route_notes']}")
+    log(f"K(a) window: m={a['m']} = n_local {a['n_local']} + 2 x halo {a['halo']}, unit K="
+        f"{a['K']} sw={a['sw']} n_win={a['n_win']}; route_dist_operator (ELL + the whole "
+        f"matrix's PELL encode) {a['route_s']:.2f}s, window partition {a['partition_s']:.2f}s, "
+        f"window encode {a['encode_s']:.2f}s")
+    log("K(a) stages " + " ".join(f"{k}={v:.2f}s" for k, v in a["stages"].items())
+        + f" total={a['wall']:.2f}s; launches {a['launches']}; peak {a['peak_gib']:.2f} GiB")
+    cm = a["comm"]
+    log(f"K(a) one CA block: exchanges={cm['exchanges']} halo_elems={cm['halo_elems']} "
+        f"all_reduce={cm['all_reduce']} ({cm['all_reduce_elems']} elems) all_gather="
+        f"{cm['all_gather']} ({cm['all_gather_elems']} elems); "
+        f"cross_device_consistency(R)={cm['R_spread']}")
+    checks = {
+        "K(a) route == 'pell'": a["format"] == "pell",
+        "K(a) solver == 'dist_restarted_ca_lanczos+polish10'":
+            a["label"] == "dist_restarted_ca_lanczos+polish10",
+        "K(a) not escalated": not a["escalated"],
+        "K(a) converged": a["converged"],
+        "K(a) eig_rel_err <= 1e-6": err <= 1e-6,
+        "K(a) pell_step_unit launched": a["launches"].get("pell_step_unit", 0) > 0,
+        "K(a) same eigs on every rank": all(np.array_equal(o["a"]["eigs"], a["eigs"])
+                                           for o in outs),
+        "K(a) R spread 0": all(o["a"]["comm"]["R_spread"] == 0.0 for o in outs),
+    }
+
+    # K(b): DistEll against DistPell, dist_ca_lanczos s = 4, 24 steps
+    gap = float(np.max(np.abs(b["ritz_ell"][:10] - b["ritz_pell"][:10]))) / norm_a
+    log(f"K(b) dist_ca_lanczos (s=4, 24 steps, monomial) on {b['ops'][0]} and {b['ops'][1]} "
+        f"(window m={b['m']}, halo {b['halo']}, from_ell {b['from_ell_s']:.2f}s): top-10 Ritz "
+        f"max gap / |A| = {gap:.3e} (bound 1e-5); both {b['wall']:.2f}s; launches "
+        f"{b['launches']}; top Ritz {np.round(b['ritz_pell'][:3], 6).tolist()}")
+    checks.update({
+        "K(b) operators DistEll, DistPell": tuple(b["ops"]) == ("DistEll", "DistPell"),
+        "K(b) Ritz parity <= 1e-5": gap <= 1e-5,
+    })
+
+    # K(c): BASELINE.json configs[4] through the distributed drivers
+    want = np.sort(c["top"].astype(np.float64))[::-1][:3]
+    got = np.sort(np.asarray(c["eigs"], np.float64))[::-1][:3]
+    err_c = float(np.max(np.abs(got - want)) / want[0]) if len(got) == 3 else float("inf")
+    dT = float(np.max(np.abs(c["sstep_T"] - c["sstep_T_single"]))
+               / np.max(np.abs(c["sstep_T_single"])))
+    log(f"K(c) DistBsr n={c['n']} tiles {tuple(c['tiles'])}: halo_b={c['halo_b']} n_local="
+        f"{c['n_local']} from_bsr {c['partition_s']:.2f}s; dist_bsr_matrix_powers (s=4) "
+        f"{c['dist_powers_ms']:.4f} ms vs the single card's BsrMatrix powers "
+        f"{c['single_powers_ms']:.4f} ms (CUDA events), max column gap {c['powers_gap']:.3e}")
+    log(f"K(c) dist_restarted_ca_lanczos(A, x, 16, s=4, n_wanted=3, tol=1e-4): converged="
+        f"{c['converged']} restarts={c['restarts']} top3_rel_err={err_c:.3e} (bound 1e-6) "
+        f"solve {c['wall']:.2f}s peak {c['peak_gib']:.2f} GiB launches {c['launches']}")
+    log(f"K(c) dist_sstep_lanczos (s=4, m=3, f64 DIA, {c['nd']} diagonals) vs the single "
+        f"card's sstep_lanczos: max|dT|/max|T| = {dT:.3e} (bound 1e-10); dist "
+        f"{c['sstep_wall']:.2f}s, single {c['sstep_single_s']:.2f}s; launches "
+        f"{c['sstep_launches']}")
+    checks.update({
+        "K(c) converged": c["converged"],
+        "K(c) top3_rel_err <= 1e-6": err_c <= 1e-6,
+        "K(c) dist powers == single card's (1e-5)": c["powers_gap"] <= BOUND["float32"],
+        "K(c) sstep T <= 1e-10": dT <= 1e-10,
+    })
+
+    # K(d): distributed propagation at G(b)'s physics
+    log(f"K(d) dist_propagate_split on the {d['n']}-row oscillator (5-offset circulant "
+        f"DistDia, periodic, n_local={d['n_local']} halo={d['halo']}): {d['steps']} steps, "
+        f"Krylov {d['krylov']}, dt={d['dt']:.6e}: {d['wall'] / d['steps'] * 1e3:.2f} ms per "
+        f"time step (single card's propagate_split {d['single_s'] / d['steps'] * 1e3:.2f} ms); "
+        f"max|dpsi|/max|psi| = {d['diff']:.3e} (bound 1e-8), drift {d['drift']:.3e} "
+        f"(bound 1e-10; single card {d['single_drift']:.3e}), moved {d['moved']:.3e}; "
+        f"launches {d['launches']}")
+    checks.update({
+        "K(d) vs propagate_split <= 1e-8": d["diff"] <= 1e-8,
+        "K(d) drift <= 1e-10": abs(d["drift"]) <= 1e-10,
+    })
+    failed += [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase K failed: {failed}")
+
+
 def phase(torch, name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -1440,7 +1608,6 @@ def main() -> int:
     phase(torch, "phase D", lambda: main_path(
         torch, "phase D (main path D, PELL unit/K4)", a32, pell_exact, "pell",
         ["pell_step_unit"], totals, engine="fused", prefer="pell", encoding="unit"))
-    del a32
     path_e = phase(torch, "phase E", lambda: main_path(
         torch, "phase E (main path E, host restarted_ca_lanczos/K1+K2)", fa32, exact, "dia",
         ["dia_powers_fused", "dia_power_step"], totals, prefer="dia"))
@@ -1460,6 +1627,8 @@ def main() -> int:
     phase(torch, "phase I", lambda: phase_i(torch, totals, rows))
     phase(torch, "phase J", lambda: phase_j(
         torch, totals, {"A (fused)": path_a, "E (host)": path_e, "F (IRL, f64)": path_f}, rows))
+    phase(torch, "phase K", lambda: phase_k(torch, totals, a32, pell_exact))
+    del a32
 
     for row in rows:
         row["launches"] = totals.get(row["name"], 0)

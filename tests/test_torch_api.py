@@ -1,12 +1,9 @@
 """The port's public API against the JAX package's: every package exports
 every name of its JAX counterpart's ``__all__``, bound to the port's own
-object, except the documented exceptions:
+object, except the documented exception:
 
 * ``ops.pick_tile`` — it picked the Pallas grid's tile; K1's launch is
-  planned by ``ops.cuda_spmv.k1_plan``;
-* ``parallel``'s second-slice operators and drivers (``DistBsr``,
-  ``DistEll``, ``DistPell``, their matrix powers, ``dist_sstep_lanczos``)
-  — they wait for the second slice of the distributed layer.
+  planned by ``ops.cuda_spmv.k1_plan``.
 
 Importing ``ca_lanczos_tpu_torch.parallel`` imports no JAX and starts no
 process group (checked in a fresh interpreter).
@@ -25,8 +22,7 @@ EXCEPTIONS = {
     ".utils": set(),
     ".solvers": set(),
     ".basis": set(),
-    ".parallel": {"DistBsr", "DistEll", "DistPell", "dist_ell_matrix_powers",
-                  "dist_pell_matrix_powers", "dist_bsr_matrix_powers", "dist_sstep_lanczos"},
+    ".parallel": set(),
 }
 
 

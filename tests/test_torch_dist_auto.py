@@ -3,10 +3,10 @@
 tests/test_dist_auto.py (routing, the escalating solve, the two-stage
 polish, the RCM-reordered band, the Ritz-vector alignment regression and
 the mixed-precision T accuracy) with its tolerances, plus the IRL first
-rung on a clustered spectrum against JAX's ``dist_solve_auto``, except the
+rung on a clustered spectrum against JAX's ``dist_solve_auto``, and the
 general-sparsity route: a bounded-bandwidth non-DIA matrix routes to
-"pell"/"ell" as in JAX, and ``partition_operator`` then refuses it until
-the second slice of the distributed layer.  Also the CLI's ``solve
+"pell" as in JAX, partitions as a DistPell and solves with JAX's label,
+restart count and eigenvalues.  Also the CLI's ``solve
 --mesh 4`` (and ``--hosts 2``) against the dense oracle, and the f64 polish of
 a block with no solve operator (``harness.auto._polish_block`` with
 ``A_solve=None``, the branch the distributed solve takes).
@@ -64,6 +64,7 @@ def _general():
 
 
 GENERAL = _general()
+GEN_CFG = dict(n_wanted=4, s=4, tol=1e-8)
 D_SOLVE = np.linspace(1.0, 100.0, 1024)
 A_SOLVE = _band(1024, D_SOLVE)
 D_POL = np.linspace(1.0, 90.0, 1024)
@@ -107,8 +108,10 @@ SPECS = [
     ("route_rcm", "route", dict(a=SCAT, s_max=4)),
     ("route_unshard", "route", dict(a=UNSHARD, s_max=8)),
     ("route_general", "route", dict(a=GENERAL, s_max=4)),
-    ("refuse_object", "partition_refuses", dict()),
-    ("refuse_general", "partition_refuses", dict(a=GENERAL)),
+    ("refuse_object", "partition", dict()),
+    ("part_general", "partition", dict(a=GENERAL, dist_format="pell")),
+    ("solve_general", "solve_auto", dict(a=GENERAL, r=np.ones(1024), max_lanczos=32,
+                                         cfg=TCfg(**GEN_CFG))),
     ("solve", "solve_auto", dict(a=A_SOLVE, r=np.ones(1024), max_lanczos=32,
                                  cfg=TCfg(n_wanted=4, s=4, tol=1e-9))),
     ("polish", "solve_auto", dict(a=A_POL, r=np.ones(1024), max_lanczos=32,
@@ -184,14 +187,23 @@ class TestRouteDistOperator:
     def test_partition_operator_type_error(self, port):
         assert get(port, "refuse_object")["type"] == "TypeError"
 
-    def test_general_sparsity_routes_then_waits(self, port, mesh):
+    def test_general_sparsity_partitions_and_solves(self, port, mesh):
         """JAX routes a windowed non-DIA matrix to its PELL engine; the port
-        gives the same format and refuses to partition it in this slice."""
+        gives the same format, partitions it as a DistPell (halo s_max x
+        bandwidth 60) and ``dist_solve_auto`` solves it with JAX's route,
+        label, restart count and eigenvalues."""
         _, fmt, _ = route_dist_operator(GENERAL, mesh, s_max=4)
-        assert get(port, "route_general")["format"] == fmt
-        assert fmt in ("pell", "ell")
-        out = get(port, "refuse_general")
-        assert out["type"] == "ValueError" and "second slice" in out["msg"]
+        assert get(port, "route_general")["format"] == fmt == "pell"
+        part = get(port, "part_general")
+        assert part["type"] is None and part["op"] == "DistPell" and part["halo"] == 240
+        out = get(port, "solve_general")
+        res_j = dist_solve_auto(GENERAL, np.ones(1024), 32, mesh, LanczosConfig(**GEN_CFG))
+        assert out["format"] == res_j.route.format == "pell"
+        assert out["solver"] == res_j.solver and out["converged"] and res_j.converged
+        assert out["n_restarts"] == res_j.n_restarts
+        got = np.sort(out["eigs"])[::-1]
+        np.testing.assert_allclose(got, np.sort(res_j.eigs)[::-1], rtol=1e-10)
+        np.testing.assert_allclose(got, _oracle(GENERAL, 4), rtol=1e-8)
 
 
 class TestDistSolveAuto:

@@ -6,8 +6,9 @@ the cholqr2, orth-mode and smallest-end classes, TestDistIRL,
 TestDistLanczos, TestPeriodicHalo (DIA), TestDistCheckpointAndRecovery,
 TestRowsNativePowers), with the same numpy inputs and the JAX tests'
 tolerances.  Also the interop of a JAX DistDia's shards and the one-rank
-periodic ring (a local wrap).  The ELL, PELL, BSR, s-step and
-propagation cases wait for the second slice of the distributed layer.
+periodic ring (a local wrap).  The ELL, PELL and BSR operators are in
+tests/test_torch_dist_general.py, the s-step and propagation cases in
+tests/test_torch_dist_sstep_prop.py.
 
 The port's ranks are started once per module (``runtime.spawn`` of
 ``parallel.checks.run``, one torch thread each) and run every case; each
@@ -646,8 +647,9 @@ class TestEntry:
 
     def test_dryrun_multichip_cpu(self):
         """dryrun_multichip(4) on gloo ranks: every engine holds Ritz parity
-        (the hierarchical 2 x 2 mesh included)."""
+        (the PELL engine and the hierarchical 2 x 2 mesh included)."""
         from ca_lanczos_tpu_torch.entry import dryrun_multichip
 
         out = dryrun_multichip(P, device="cpu", timeout=300)
         assert out["ranks"] == P and "hier ilv" in out["checked"]
+        assert "pell" in out["checked"]
