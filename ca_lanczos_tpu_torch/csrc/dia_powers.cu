@@ -21,22 +21,25 @@
 // neighbours; their values go stale inward by max|off| per step, which the
 // halo absorbs.
 //
-// K1's register kernel `dia_powers_reg<T, BW, QPT>` (offsets distinct and
-// inside +-BW, BW in {1, 2, 4, 8}).  What it does about the four faults of
-// the first port (one block per tile, everything in shared memory):
-// - Shared-memory traffic.  A thread owns QPT quads of 4 consecutive
-//   window rows for all s steps; its plane coefficients, w_j and w_{j-1}
-//   live in registers.  A step reads only the neighbours' w_j, as whole
-//   16-byte quads (ceil(BW/4) a side; its own quad comes from registers),
-//   and writes its new quad as one 16-byte store, to one buffer of a
-//   ping-pong pair: one barrier per step.  Picking a diagonal's value out
-//   of the quads needs a compile-time register index, so the coefficients
-//   are held per band slot (2*BW + 1 per row, zero where the band has no
-//   diagonal; the host maps offsets to slots) rather than per diagonal.
-//   Zero guard quads at both ends of each step buffer replace the bounds
-//   test; they feed only halo rows.
-// - Idle passes.  The window is 4 * 256 * QPT rows, a whole number of
-//   quads for every thread; the halo is rounded up to a quad, so the
+// K1's register kernel `dia_powers_reg<T, BW, QPT, RC>` (offsets inside
+// +-BW, BW in {1, 2, 4, 8, 16}; repeated offsets allowed).  What it does
+// about the four faults of the first port (one block per tile, everything
+// in shared memory):
+// - Shared-memory traffic.  A thread owns QPT vectors of RC consecutive
+//   window rows (quads; pairs in f64 at BW = 16) for all s steps; its
+//   plane coefficients, w_j and w_{j-1} live in registers.  A step reads
+//   only the neighbours' w_j, as whole 16-byte vectors (ceil(BW/RC) a
+//   side; its own vector comes from registers), and writes its new vector
+//   as one 16-byte store, to one buffer of a ping-pong pair: one barrier
+//   per step.  Picking a diagonal's value out of the vectors needs a
+//   compile-time register index, so the coefficients are held per band
+//   slot (2*BW + 1 per row, zero where the band has no diagonal; the host
+//   maps offsets to slots, and the planes of a repeated offset are summed
+//   into its slot when a tile's coefficients are loaded) rather than per
+//   diagonal.  Zero guard vectors at both ends of each step buffer replace
+//   the bounds test; they feed only halo rows.
+// - Idle passes.  The window is RC * 256 * QPT rows, a whole number of
+//   vectors for every thread; the halo is rounded up to a vector, so the
 //   owned tile starts on one.
 // - Unhidden staging.  The grid is persistent (as many blocks as fit) and
 //   walks the tiles.  Once a tile's coefficients and x sit in registers,
@@ -64,10 +67,30 @@
 // 200 registers), and V stored by the threads (0.6 against 0.4 ms in f64
 // on the tridiagonal path: two 16-byte stores a quad half-fill each sector).
 //
-// `dia_powers_smem` is the first port's kernel, kept as the fallback for
-// more diagonals, a wider band or repeated offsets: one tile per block,
-// the planes and both vectors in shared memory.  K2's s launches are the
-// last fallback (ops/cuda_spmv.py k1_plan decides).
+// The wide-band kernel (plan variant "band", BW = 16: phase H's 31
+// diagonals inside +-15) replaced the first port's kernel at those bands:
+// that kept the planes and both vectors in shared memory, so its window
+// stayed near the halo (1.1x to 2.9x the owned rows recomputed at s = 2
+// to 16) and each multiply-add cost two shared-memory loads and a bounds
+// test.  Here a row's 33 coefficients sit in registers (a quad's 132 in
+// f32, a pair's in f64, where a quad's would need 264), so the window is
+// 1024 rows in f32 and 512 in f64 with the halo s*max|off| a side, and a
+// multiply-add costs about a quarter of a shared-memory load.  Each row's
+// 33 multiply-adds run as two partial sums, and V leaves by thread stores:
+// measured on the H100 (chip_compare.py --k1-split), bulk copies were
+// slower here (0.69 against 0.62 ms at H's form, f32, s = 4; 1.45 against
+// 1.36 ms at K(c)'s f64 shard), thread 0's wait on the copy unit before
+// each step's barrier costing more than the heavier steps hide.  At s = 4
+// the steps hide behind the staging (a build without them is no faster);
+// at s = 16 they take about half the time.  Tried and dropped: each thread
+// staging exactly the rows it reads, so that a tile starts without
+// barriers (no faster at s = 4).
+//
+// `dia_powers_smem` is the first port's kernel, kept for the bands wider
+// than +-16, a staging area past shared memory (many repeated offsets) or
+// a halo that leaves a register window no tile: one tile per block, the
+// planes and both vectors in shared memory.  K2's s launches are the last
+// fallback (ops/cuda_spmv.py k1_plan decides).
 //
 // DIA_K1_DROP (0 in the library) builds timing variants of the register
 // kernel that drop or replace one part: 1 never re-stages (every tile
@@ -90,16 +113,27 @@
 namespace {
 
 constexpr int K1_THREADS = 256;
-constexpr int K1_MAX_BW = 8;
+constexpr int K1_MAX_BW = 16;
 
-// Register kernel: band slot b (offset b - BW) -> its plane, or -1.
+// Register kernels: band slot b (offset b - BW) -> its first plane, or -1;
+// next[d] -> the next plane with d's offset, or -1.  A repeated offset's
+// planes are summed into their slot's coefficients when a tile is loaded.
 struct BandSlots {
   int v[2 * K1_MAX_BW + 1];
+  int next[DIA_MAX_DIAGS];
 };
 
-// 4 consecutive elements at a 16-byte aligned address: one 16-byte access
-// in f32, two in f64.
-__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+// Rows a register kernel holds per 16-byte vector: quads, except f64 at the
+// widest band, where a quad's 4 * 33 coefficients would not fit in
+// registers and a thread owns pairs.
+template <typename T>
+constexpr int reg_rows(int bw) {
+  return bw > 8 && sizeof(T) == 8 ? 2 : 4;
+}
+
+// RC consecutive elements at a 16-byte aligned address: one 16-byte access
+// (f32 quads, f64 pairs) or two (f64 quads).
+__device__ __forceinline__ void loadv(const float* p, float (&o)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   o[0] = t.x;
   o[1] = t.y;
@@ -107,7 +141,7 @@ __device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
   o[3] = t.w;
 }
 
-__device__ __forceinline__ void load4(const double* p, double (&o)[4]) {
+__device__ __forceinline__ void loadv(const double* p, double (&o)[4]) {
   const double2 a = reinterpret_cast<const double2*>(p)[0];
   const double2 b = reinterpret_cast<const double2*>(p)[1];
   o[0] = a.x;
@@ -116,26 +150,37 @@ __device__ __forceinline__ void load4(const double* p, double (&o)[4]) {
   o[3] = b.y;
 }
 
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+__device__ __forceinline__ void loadv(const double* p, double (&o)[2]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  o[0] = a.x;
+  o[1] = a.y;
+}
+
+__device__ __forceinline__ void storev(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
+__device__ __forceinline__ void storev(double* p, const double (&v)[4]) {
   reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
   reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
 }
 
-// Rows g..g+3 of an output (g >= 0): one quad store when `wide` (n % 4 ==
-// 0, so the quad lies wholly inside or outside [0, n)), else per element.
-template <typename T>
-__device__ __forceinline__ void put4(T* dst, long long g, long long n, const T (&v)[4],
+__device__ __forceinline__ void storev(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
+// Rows g..g+RC-1 of an output (g >= 0): one vector store when `wide` (n %
+// 4 == 0, so the vector lies wholly inside or outside [0, n)), else per
+// element.
+template <typename T, int RC>
+__device__ __forceinline__ void putv(T* dst, long long g, long long n, const T (&v)[RC],
                                      bool wide) {
   if (wide) {
-    if (g < n) store4(dst + g, v);
+    if (g < n) storev(dst + g, v);
     return;
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RC; ++i)
     if (g + i < n) dst[g + i] = v[i];
 }
 
@@ -169,17 +214,22 @@ __device__ __forceinline__ void stage_tile(T* st, const T* data, int nd, const T
   copy_commit();
 }
 
-template <typename T, int BW, int QPT>
+template <typename T, int BW, int QPT, int RC>
 __global__ void __launch_bounds__(K1_THREADS)
     dia_powers_reg(const T* __restrict__ data, BandSlots slots, int nd, const T* __restrict__ x,
                    StepCoefs coefs, int with_coefs, T* __restrict__ V, T* __restrict__ last,
                    long long n, int s, int tile, int halo, int ntiles, int wide) {
-  constexpr int L = 4 * K1_THREADS * QPT;  // window rows
-  constexpr int NB = 2 * BW + 1;           // band slots per row
-  constexpr int R = (BW + 3) / 4;          // neighbour quads a side
-  constexpr int G = 4 * R;                 // guard rows a side of a step buffer
+  constexpr int L = RC * K1_THREADS * QPT;  // window rows
+  constexpr int NB = 2 * BW + 1;            // band slots per row
+  constexpr int R = (BW + RC - 1) / RC;     // neighbour vectors a side
+  constexpr int G = RC * R;                 // guard rows a side of a step buffer
   constexpr int kDrop = DIA_K1_DROP;
-  const bool bulk = wide && kDrop != 4;  // V leaves in bulk copies
+  // V leaves in bulk copies, except at the wide band, whose heavier steps
+  // do better without thread 0 waiting on the copy unit before each barrier
+  const bool bulk = wide && kDrop != 4 && BW <= 8;
+  // independent partial sums per row: the wide band's 33 multiply-adds a
+  // row in two chains
+  constexpr int NACC = NB > 17 ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* st = reinterpret_cast<T*>(smem_raw);  // (nd + 1) * L: stage_tile
   T* buf0 = st + (size_t)(nd + 1) * L;     // w_j of even steps: G + L + G rows
@@ -192,7 +242,7 @@ __global__ void __launch_bounds__(K1_THREADS)
 
   int t = blockIdx.x;
   if (t < ntiles) stage_tile<T, L>(st, data, nd, x, n, (long long)t * tile - halo, wide != 0);
-  T coef[QPT][NB][4], cur[QPT][4], prv[QPT][4];
+  T coef[QPT][NB][RC], cur[QPT][RC], prv[QPT][RC];
   for (; t < ntiles; t += gridDim.x) {
     copy_wait_all();
     if (bulk && threadIdx.x == 0) bulk_wait_read();  // the last tile's V copies read buf0/1
@@ -200,26 +250,32 @@ __global__ void __launch_bounds__(K1_THREADS)
     const long long w0 = (long long)t * tile - halo;
 #pragma unroll
     for (int q = 0; q < QPT; ++q) {
-      const int p = 4 * (threadIdx.x + K1_THREADS * q);
+      const int p = RC * (threadIdx.x + K1_THREADS * q);
 #pragma unroll
       for (int b = 0; b < NB; ++b) {
         const int d = slots.v[b];
         if (d >= 0) {
-          load4(st + (size_t)d * L + p, coef[q][b]);
+          loadv(st + (size_t)d * L + p, coef[q][b]);
+          for (int e = slots.next[d]; e >= 0; e = slots.next[e]) {  // a repeated offset
+            T more[RC];
+            loadv(st + (size_t)e * L + p, more);
+#pragma unroll
+            for (int i = 0; i < RC; ++i) coef[q][b][i] += more[i];
+          }
         } else {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) coef[q][b][i] = T(0);
+          for (int i = 0; i < RC; ++i) coef[q][b][i] = T(0);
         }
       }
-      load4(st + (size_t)nd * L + p, cur[q]);
+      loadv(st + (size_t)nd * L + p, cur[q]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) prv[q][i] = T(0);
+      for (int i = 0; i < RC; ++i) prv[q][i] = T(0);
     }
     __syncthreads();  // every thread has its copy: the staging area may be refilled
     if (kDrop != 1 && t + (int)gridDim.x < ntiles)
       stage_tile<T, L>(st, data, nd, x, n, (long long)(t + gridDim.x) * tile - halo, wide != 0);
 #pragma unroll
-    for (int q = 0; q < QPT; ++q) store4(buf0 + G + 4 * (threadIdx.x + K1_THREADS * q), cur[q]);
+    for (int q = 0; q < QPT; ++q) storev(buf0 + G + RC * (threadIdx.x + K1_THREADS * q), cur[q]);
     __syncthreads();
 
     for (int j = 0; j < s; ++j) {
@@ -229,41 +285,46 @@ __global__ void __launch_bounds__(K1_THREADS)
       const T c1 = (T)coefs.v[2 * j + 1];
 #pragma unroll
       for (int q = 0; q < QPT; ++q) {
-        const int p = 4 * (threadIdx.x + K1_THREADS * q);
-        T nv[4];
+        const int p = RC * (threadIdx.x + K1_THREADS * q);
+        T nv[RC];
         if (kDrop == 2) {  // a timing build: no reads, no arithmetic
 #pragma unroll
-          for (int i = 0; i < 4; ++i) nv[i] = cur[q][i];
+          for (int i = 0; i < RC; ++i) nv[i] = cur[q][i];
         } else {
-          T nb[2 * R + 1][4];  // window rows p - 4R .. p + 4R + 3
+          T nb[2 * R + 1][RC];  // window rows p - RC*R .. p + RC*R + RC - 1
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            load4(rd + G + p - 4 * (R - r), nb[r]);
-            load4(rd + G + p + 4 * (r + 1), nb[R + 1 + r]);
+            loadv(rd + G + p - RC * (R - r), nb[r]);
+            loadv(rd + G + p + RC * (r + 1), nb[R + 1 + r]);
           }
 #pragma unroll
-          for (int i = 0; i < 4; ++i) nb[R][i] = cur[q][i];
+          for (int i = 0; i < RC; ++i) nb[R][i] = cur[q][i];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            T acc = T(0);
+          for (int i = 0; i < RC; ++i) {
+            T part[NACC];
+#pragma unroll
+            for (int a = 0; a < NACC; ++a) part[a] = T(0);
 #pragma unroll
             for (int b = 0; b < NB; ++b) {
-              const int k = 4 * R + i + b - BW;  // row p + i + (b - BW)
-              acc += coef[q][b][i] * nb[k / 4][k % 4];
+              const int k = RC * R + i + b - BW;  // row p + i + (b - BW)
+              part[b % NACC] += coef[q][b][i] * nb[k / RC][k % RC];
             }
+            T acc = part[0];
+#pragma unroll
+            for (int a = 1; a < NACC; ++a) acc += part[a];
             nv[i] = with_coefs ? acc - c0 * cur[q][i] - c1 * prv[q][i] : acc;
           }
-          store4(wr + G + p, nv);
+          storev(wr + G + p, nv);
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RC; ++i) {
           prv[q][i] = cur[q][i];
           cur[q][i] = nv[i];
         }
         if (!bulk && p >= halo && p < halo + tile) {
           const long long g = w0 + p;
-          if (kDrop != 3 || j == s - 1) put4(V + (long long)j * n, g, n, nv, wide != 0);
-          if (j == s - 1) put4(last, g, n, nv, wide != 0);
+          if (kDrop != 3 || j == s - 1) putv<T, RC>(V + (long long)j * n, g, n, nv, wide != 0);
+          if (j == s - 1) putv<T, RC>(last, g, n, nv, wide != 0);
         }
       }
       if (bulk) {
@@ -355,16 +416,17 @@ __global__ void dia_power_step_kernel(const T* __restrict__ data, DiaOffsets off
   }
 }
 
-// The instantiated register kernels: band capacity BW in {1, 2, 4, 8} and
-// quads per thread QPT in {1, 2}; ops/cuda_spmv.py K1_REG_QUADS picks one
-// QPT per element size and BW.  Null otherwise.
+// The instantiated register kernels: band capacity BW in {1, 2, 4, 8} with
+// quads per thread QPT in {1, 2}, and BW = 16 (the wide-band kernel) with
+// one vector of reg_rows<T>(16) rows per thread; ops/cuda_spmv.py K1_REG
+// picks one per element size and BW.  Null otherwise.
 template <typename T>
 using RegKernel = void (*)(const T*, BandSlots, int, const T*, StepCoefs, int, T*, T*,
                            long long, int, int, int, int, int);
 
 template <typename T, int BW>
 RegKernel<T> reg_kernel_bw(int qpt) {
-  return qpt == 1 ? dia_powers_reg<T, BW, 1> : qpt == 2 ? dia_powers_reg<T, BW, 2> : nullptr;
+  return qpt == 1 ? dia_powers_reg<T, BW, 1, 4> : qpt == 2 ? dia_powers_reg<T, BW, 2, 4> : nullptr;
 }
 
 template <typename T>
@@ -374,14 +436,16 @@ RegKernel<T> reg_kernel(int bw, int qpt) {
     case 2: return reg_kernel_bw<T, 2>(qpt);
     case 4: return reg_kernel_bw<T, 4>(qpt);
     case 8: return reg_kernel_bw<T, 8>(qpt);
+    case 16: return qpt == 1 ? dia_powers_reg<T, 16, 1, reg_rows<T>(16)> : nullptr;
     default: return nullptr;
   }
 }
 
 // K1.  bw == 0: the shared-memory kernel, one block per tile of `tile`
 // rows with a `halo` a side.  bw > 0: the register kernel of band capacity
-// bw and qpt quads per thread, whose window tile + 2*halo must be
-// 4 * K1_THREADS * qpt rows with tile and halo whole quads.
+// bw and qpt vectors of reg_rows<T>(bw) rows per thread, whose window tile
+// + 2*halo must be reg_rows * K1_THREADS * qpt rows with tile and halo
+// whole vectors.
 template <typename T>
 int fused(const T* data, const int* offsets, int nd, const T* x, const double* coefs, T* V,
           T* last, long long n, int s, int tile, int halo, int bw, int qpt, void* stream) {
@@ -400,17 +464,19 @@ int fused(const T* data, const int* offsets, int nd, const T* x, const double* c
                             x, c, with_coefs, V, last, n, s, tile, halo);
   }
   const RegKernel<T> kernel = reg_kernel<T>(bw, qpt);
+  const int rc = reg_rows<T>(bw);
   const int L = tile + 2 * halo;
-  if (kernel == nullptr || wmax > bw || tile % 4 || halo % 4 || L != 4 * K1_THREADS * qpt)
+  if (kernel == nullptr || wmax > bw || tile % rc || halo % rc || L != rc * K1_THREADS * qpt)
     return (int)cudaErrorInvalidValue;
   BandSlots slots;
   for (int b = 0; b < 2 * K1_MAX_BW + 1; ++b) slots.v[b] = -1;
   for (int i = 0; i < nd; ++i) {
-    int& slot = slots.v[offsets[i] + bw];
-    if (slot >= 0) return (int)cudaErrorInvalidValue;  // a repeated offset
-    slot = i;
+    slots.next[i] = -1;
+    int* at = &slots.v[offsets[i] + bw];  // append plane i to its offset's chain
+    while (*at >= 0) at = &slots.next[*at];
+    *at = i;
   }
-  const int G = 4 * ((bw + 3) / 4);
+  const int G = rc * ((bw + rc - 1) / rc);
   const size_t bytes = ((size_t)(nd + 1) * L + 2 * (size_t)(L + 2 * G)) * sizeof(T);
   int blocks = 0;
   const int e = persistent_blocks(kernel, K1_THREADS, bytes, ntiles, &blocks);

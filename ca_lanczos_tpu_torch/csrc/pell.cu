@@ -42,9 +42,23 @@
 // SM of small blocks is what hides the latency: one warp per group with 4
 // rows a lane (~100 registers), a cp.async ring of staged slabs, or an
 // 8-deep unroll (~100 registers) were each slower (PERF.md).
-// K5 (the same block shape) stages each (8, 128) slot-tile of its index
-// plane in shared memory, because an element's sub is read at another
-// thread's position.
+//
+// K5 design.  Any encoding's slots past `slot_count[g]` hold zero values,
+// and an element's sub sits at its source lane of the SAME slot row, so
+// the prefix of `cnt` slots is all the step needs: at 11M rows a grouped
+// group occupies ~12 of its K = 16 slots.  One block of 128 threads per
+// 128-row group, one row per thread (at most 32 registers, so 16 blocks
+// fill an SM).  Thread 0 stages the prefix's rows of vals and idx (512 B /
+// 1 KB and 256 B each, 16 rows a pass) into shared memory with one bulk
+// copy per row, all in flight at once, evict-first in L2, completing on an
+// mbarrier.  Meanwhile the other warps decode the 8 (window, sub) x
+// offsets of every slot-tile once (the division by SR happens there; all
+// K / 8 slot-tiles, so that these loads do not wait for the count), so
+// that an element's x index is base[slot-tile][sub] + lane.  Measured on
+// the H100 at 11M rows (chip_compare.py): the same prefix read by per-
+// thread loads (four slots in flight, 40 registers: 12 blocks an SM)
+// reached 66% of the prefix's bound in f32; the bulk staging 74%, and 81%
+// once the base loads no longer waited for the count (f64: 83%).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,14 +66,7 @@ namespace {
 
 constexpr int LANES = 128;
 constexpr int SLOTS = 8;
-
-__device__ __forceinline__ long long column(int scr, int sr, int W, const int* span,
-                                            int lane) {
-  int w = scr / sr;
-  const int rel = scr - w * sr;
-  if (w >= W) w = W - 1;
-  return (long long)(span[w] + rel) * LANES + lane;
-}
+constexpr int GROUPED_CHUNK = 16;  // K5: slot rows staged per pass
 
 template <typename T>
 __global__ void __launch_bounds__(LANES)
@@ -108,44 +115,125 @@ __global__ void __launch_bounds__(LANES)
   y[row] = out;
 }
 
+// Shared-memory barrier and bulk copies (sm_90) for K5's staging: one
+// thread issues a copy per plane row, completion is counted in bytes on
+// an mbarrier.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared, evict-first in L2, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
 template <typename T, int NW, int SP>
-__global__ void __launch_bounds__(LANES)
+__global__ void __launch_bounds__(LANES, 16)
     pell_grouped_kernel(const T* __restrict__ vals, const int16_t* __restrict__ idx,
                         const int* __restrict__ cbase, const int* __restrict__ span_row,
-                        const T* __restrict__ x, const T* __restrict__ vprev, T d, T sb,
-                        T* __restrict__ y, int tile, int K, int sr, int W) {
+                        const int* __restrict__ slot_count, const T* __restrict__ x,
+                        const T* __restrict__ vprev, T d, T sb, T* __restrict__ y, int tile,
+                        int K, int sr, int W, int chunk) {
   static_assert(NW * SP == SLOTS, "NW windows of spread SP cover one slot-tile");
-  extern __shared__ int smem[];
-  __shared__ int16_t s_idx[SLOTS][LANES];  // one slot-tile of the index plane
-  const int KT = K / SLOTS;
-  int* s_cb = smem;            // KT*NW window bases of this group
-  int* s_span = smem + KT * NW; // W window starts of this tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_vals = reinterpret_cast<T*>(smem_raw);                 // chunk slot rows of vals
+  int16_t* s_idx = reinterpret_cast<int16_t*>(s_vals + chunk * LANES);  // ... and of idx
+  int* s_base = reinterpret_cast<int*>(s_idx + chunk * LANES);  // x offset per (slot-tile, sub)
+  int* s_span = s_base + K;                                       // the tile's W window starts
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_span + ((W + 1) & ~1));
   const int B = tile / LANES;
-  const long long t = blockIdx.x / B;
-  const int b = blockIdx.x % B;
+  const long long g = blockIdx.x;  // group; row t of cbase holds its B groups' bases
+  const long long t = g / B;
+  const int b = (int)(g - t * B);
   const int r = threadIdx.x;
-  for (int i = r; i < KT * NW; i += LANES)
-    s_cb[i] = cbase[t * B * KT * NW + (long long)b * KT * NW + i];
-  for (int i = r; i < W; i += LANES) s_span[i] = span_row[t * W + i];
-
-  const long long e0 = t * K * tile + (long long)b * LANES + r;
-  T acc = T(0);
-  for (int kt = 0; kt < KT; ++kt) {
-    __syncthreads();  // the previous slot-tile's reads (and the table loads) are done
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) s_idx[j][r] = idx[e0 + (long long)(kt * SLOTS + j) * tile];
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const int code = s_idx[j][r];
-      const int lane = code & 127;
-      const int sub = (s_idx[j][lane] >> 7) & 7;  // stored at the source lane
-      const int scr = s_cb[kt * NW + sub / SP] + sub % SP;
-      acc += vals[e0 + (long long)(kt * SLOTS + j) * tile] *
-             x[column(scr, sr, W, s_span, lane)];
+  const int cnt = min(slot_count[g], K);
+  const long long row = t * tile + (long long)b * LANES + r;
+  const long long e0 = t * K * tile + (long long)b * LANES;  // the group's slot 0
+  // one pass stages slot rows [u0, u1) of vals and idx (thread 0)
+  uint64_t policy = 0;
+  auto stage = [&](int u0, int u1) {
+    mbar_expect(bar, (unsigned)((u1 - u0) * LANES * (sizeof(T) + sizeof(int16_t))));
+    for (int u = u0; u < u1; ++u) {
+      bulk_load(s_vals + (u - u0) * LANES, vals + e0 + (long long)u * tile, LANES * sizeof(T),
+                bar, policy);
+      bulk_load(s_idx + (u - u0) * LANES, idx + e0 + (long long)u * tile,
+                LANES * sizeof(int16_t), bar, policy);
+    }
+  };
+  if (r == 0) {
+    if (cnt > 0) {
+      mbar_init(bar);
+      asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+      stage(0, min(cnt, chunk));
+    }
+  } else if (r >= 32) {
+    // warps 1-3, waiting for no count: every slot-tile's scratch-relative
+    // chunks and the tile's window starts
+    const int* cb = cbase + g * (K / SLOTS) * NW;
+    for (int i = r - 32; i < K || i < W; i += LANES - 32) {
+      const int scr = i < K ? cb[i / SLOTS * NW + i % SLOTS / SP] + i % SLOTS % SP : 0;
+      const int start = i < W ? span_row[t * W + i] : 0;
+      if (i < K) s_base[i] = scr;
+      if (i < W) s_span[i] = start;
     }
   }
-  const long long row = t * tile + (long long)b * LANES + r;
+  __syncthreads();  // the chunks, window starts and the barrier's initialisation are visible
+  for (int i = r; i < K; i += LANES) {  // the x offsets
+    const int scr = s_base[i];
+    int w = scr / sr;
+    const int rel = scr - w * sr;
+    if (w >= W) w = W - 1;
+    s_base[i] = (s_span[w] + rel) * LANES;
+  }
+  __syncthreads();
+  T acc = T(0);
+  for (int u0 = 0, pass = 0; u0 < cnt; u0 += chunk, ++pass) {
+    const int u1 = min(cnt, u0 + chunk);
+    mbar_wait(bar, pass & 1);
+#pragma unroll 8
+    for (int u = u0; u < u1; ++u) {
+      const int16_t* rw = s_idx + (u - u0) * LANES;
+      const int lane = rw[r] & 127;
+      const int sub = (rw[lane] >> 7) & 7;  // stored at the source lane
+      acc += s_vals[(u - u0) * LANES + r] * __ldg(x + s_base[(u & ~(SLOTS - 1)) + sub] + lane);
+    }
+    if (u1 < cnt) {
+      __syncthreads();  // every thread is done with this pass's rows
+      if (r == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        stage(u1, min(cnt, u1 + chunk));
+      }
+    }
+  }
   T out = acc - d * x[row];
   if (vprev != nullptr) out -= sb * vprev[row];
   y[row] = out;
@@ -174,19 +262,27 @@ int unit(const T* vals, const int8_t* lidx, const int* cbase, const int* span_ro
 
 template <typename T>
 int grouped(const T* vals, const int16_t* idx, const int* cbase, const int* span_row,
-            const T* x, const T* vprev, double d, double sb, T* y, int ntiles, int tile, int K,
-            int sr, int W, int nw, void* stream) {
-  if (bad_shape(ntiles, tile, K, sr, W) || (nw != 2 && nw != 4))
+            const int* slot_count, const T* x, const T* vprev, double d, double sb, T* y,
+            int ntiles, int tile, int K, int sr, int W, int nw, void* stream) {
+  if (bad_shape(ntiles, tile, K, sr, W) || (nw != 2 && nw != 4) ||
+      (long long)ntiles * tile + (long long)sr * LANES >= 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(K / SLOTS * nw + W) * sizeof(int);
-  if (smem > 40 * 1024) return (int)cudaErrorInvalidValue;
+  // slot rows staged per pass: all K for the usual K <= 16; bulk copies
+  // need 16-byte aligned planes
+  const int chunk = K < GROUPED_CHUNK ? K : GROUPED_CHUNK;
+  const size_t smem = (size_t)chunk * LANES * (sizeof(T) + sizeof(int16_t)) +
+                      (size_t)(K + ((W + 1) & ~1)) * sizeof(int) + sizeof(uint64_t);
+  if (smem > 48 * 1024 || ((uintptr_t)vals | (uintptr_t)idx) % 16)
+    return (int)cudaErrorInvalidValue;
   const int blocks = ntiles * (tile / LANES);
   if (nw == 2)
     pell_grouped_kernel<T, 2, 4><<<blocks, LANES, smem, (cudaStream_t)stream>>>(
-        vals, idx, cbase, span_row, x, vprev, (T)d, (T)sb, y, tile, K, sr, W);
+        vals, idx, cbase, span_row, slot_count, x, vprev, (T)d, (T)sb, y, tile, K, sr, W,
+        chunk);
   else
     pell_grouped_kernel<T, 4, 2><<<blocks, LANES, smem, (cudaStream_t)stream>>>(
-        vals, idx, cbase, span_row, x, vprev, (T)d, (T)sb, y, tile, K, sr, W);
+        vals, idx, cbase, span_row, slot_count, x, vprev, (T)d, (T)sb, y, tile, K, sr, W,
+        chunk);
   return (int)cudaGetLastError();
 }
 
@@ -211,19 +307,19 @@ int pell_unit_f64(const double* vals, const int8_t* lidx, const int* cbase,
 }
 
 int pell_grouped_f32(const float* vals, const int16_t* idx, const int* cbase,
-                     const int* span_row, const float* x, const float* vprev, double d,
-                     double sb, float* y, int ntiles, int tile, int K, int sr, int W, int nw,
-                     void* stream) {
-  return grouped<float>(vals, idx, cbase, span_row, x, vprev, d, sb, y, ntiles, tile, K, sr, W,
-                        nw, stream);
+                     const int* span_row, const int* slot_count, const float* x,
+                     const float* vprev, double d, double sb, float* y, int ntiles, int tile,
+                     int K, int sr, int W, int nw, void* stream) {
+  return grouped<float>(vals, idx, cbase, span_row, slot_count, x, vprev, d, sb, y, ntiles,
+                        tile, K, sr, W, nw, stream);
 }
 
 int pell_grouped_f64(const double* vals, const int16_t* idx, const int* cbase,
-                     const int* span_row, const double* x, const double* vprev, double d,
-                     double sb, double* y, int ntiles, int tile, int K, int sr, int W, int nw,
-                     void* stream) {
-  return grouped<double>(vals, idx, cbase, span_row, x, vprev, d, sb, y, ntiles, tile, K, sr,
-                         W, nw, stream);
+                     const int* span_row, const int* slot_count, const double* x,
+                     const double* vprev, double d, double sb, double* y, int ntiles, int tile,
+                     int K, int sr, int W, int nw, void* stream) {
+  return grouped<double>(vals, idx, cbase, span_row, slot_count, x, vprev, d, sb, y, ntiles,
+                         tile, K, sr, W, nw, stream);
 }
 
 }  // extern "C"

@@ -4,10 +4,12 @@ Counterpart of ``ca_lanczos_tpu/ops/pell.py``'s ``_pell_step``.  The
 kernels are CUDA C++ in ``csrc/pell.cu`` (see its header for what each
 replaces and what bounds it):
 
-* K4 ``pell_step_unit`` — unit encoding (int8 lanes); it reads only the
-  slots below ``A.slot_count`` of each 128-row group;
+* K4 ``pell_step_unit`` — unit encoding (int8 lanes);
 * K5 ``pell_step_grouped`` — the grouped encodings, one kernel templated
   on the window geometry (``GROUPED_GEOM``: grouped NW=2, grouped4 NW=4).
+
+Both read only the slots below ``A.slot_count`` of each 128-row group
+(the slots past it hold zero values).
 
 Both compute one step ``y = A x - d x - sb v_prev`` on vectors of length
 ``A.n_x``; the plain version is ``ops.pell.pell_step_ref``.  ``pell_step``
@@ -45,7 +47,8 @@ _SIGS = {
     for t in ("f32", "f64")
 }
 _SIGS.update({
-    f"pell_grouped_{t}": ([_P, _P, _P, _P, _P, _P, _D, _D, _P, _I, _I, _I, _I, _I, _I, _P], _I)
+    f"pell_grouped_{t}": ([_P, _P, _P, _P, _P, _P, _P, _D, _D, _P, _I, _I, _I, _I, _I, _I, _P],
+                          _I)
     for t in ("f32", "f64")
 })
 
@@ -111,12 +114,11 @@ def pell_step(A: PellMatrix, x: torch.Tensor, v_prev: Optional[torch.Tensor] = N
     suffix = "f32" if x.dtype == torch.float32 else "f64"
     lib = _lib()
     args = [A.vals.data_ptr(), A.lidx.data_ptr(), A.cbase.data_ptr(), A.span_row.data_ptr(),
-            x.data_ptr(), None if v_prev is None else v_prev.data_ptr(), float(d), float(sb),
+            A.slot_count.data_ptr(), x.data_ptr(),
+            None if v_prev is None else v_prev.data_ptr(), float(d), float(sb),
             out.data_ptr(), A.ntiles, A.tile, A.k_slots, A.sw // LANES, A.n_win]
     if grouped:
         args.append(GROUPED_GEOM[A.enc][0])
-    else:
-        args.insert(4, A.slot_count.data_ptr())
     with torch.cuda.device(x.device):
         fn = getattr(lib, ("pell_grouped_" if grouped else "pell_unit_") + suffix)
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)

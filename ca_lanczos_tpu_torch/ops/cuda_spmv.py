@@ -7,8 +7,9 @@ and what bounds it):
 
 * K1 ``dia_powers_fused`` — s steps of the three-term recurrence with the
   matrix read once per s steps; plain version ``dia_powers_fused_ref``.
-  :func:`k1_plan` picks its kernel: the register kernel for distinct
-  offsets inside +-8, else the shared-memory fallback, else K2 steps.
+  :func:`k1_plan` picks its kernel: the register kernel for offsets
+  inside +-8, its wide-band instance for offsets inside +-16, else the
+  shared-memory kernel, else K2 steps.
 * K2 ``dia_power_step`` — one step ``y = A x - c0 x - c1 v_prev``; plain
   version ``dia_power_step_ref``.  It is K1's fallback when K1's halo does
   not fit shared memory, and, registered in ``ops.spmv.CUDA_MATVEC``, the
@@ -42,9 +43,10 @@ MAX_STEPS = 64  # DIA_MAX_STEPS
 SMEM_TARGET = 96 * 1024  # two resident blocks per SM
 SMEM_MAX = 227 * 1024  # per-block dynamic shared memory on sm_90
 
-# dia_powers_fused counts every K1 launch, dia_powers_reg / _smem by kernel
-LAUNCHES = {"dia_powers_fused": 0, "dia_powers_reg": 0, "dia_powers_smem": 0,
-            "dia_power_step": 0}
+# dia_powers_fused counts every K1 launch, dia_powers_reg / _band / _smem by
+# plan variant
+LAUNCHES = {"dia_powers_fused": 0, "dia_powers_reg": 0, "dia_powers_band": 0,
+            "dia_powers_smem": 0, "dia_power_step": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -158,76 +160,84 @@ def dia_power_step_ref(data, x, v_prev, coefs, offsets):
 # ---------------------------------------------------------------------------
 
 K1_THREADS = 256  # K1_THREADS in csrc/dia_powers.cu
-# The register kernels csrc/dia_powers.cu instantiates are keyed by band
-# capacity BW (offsets inside +-BW); per element size, the quads of 4 rows
-# each thread owns (window = 4 * K1_THREADS * quads rows), chosen so its
-# 4 * (2*BW + 1) coefficients per quad stay in registers.
-K1_REG_QUADS = {4: {1: 2, 2: 2, 4: 1, 8: 1}, 8: {1: 1, 2: 1, 4: 1, 8: 1}}
+# The register kernels csrc/dia_powers.cu instantiates, keyed by element
+# size and band capacity BW (offsets inside +-BW): (rows per 16-byte
+# vector, vectors per thread), so that a thread's (2*BW + 1) coefficients
+# per row stay in registers; window = rows * K1_THREADS * vectors.  BW = 16
+# is the wide-band kernel (plan variant "band"); in f64 it holds pairs
+# (reg_rows in the source).
+K1_REG = {4: {1: (4, 2), 2: (4, 2), 4: (4, 1), 8: (4, 1), 16: (4, 1)},
+          8: {1: (4, 1), 2: (4, 1), 4: (4, 1), 8: (4, 1), 16: (2, 1)}}
 
 
 class K1Plan(NamedTuple):
-    """One K1 launch: ``variant`` "reg" (register kernel), "smem" (the
-    shared-memory fallback) or "steps" (no s-step window fits: s launches
-    of K2); ``tile`` rows owned per tile with ``halo`` rows a side;
-    ``quads`` per thread and band capacity ``bw`` of the register kernel;
-    ``smem`` bytes of shared memory per block."""
+    """One K1 launch: ``variant`` "reg" (the register kernel, band
+    capacity up to 8), "band" (the same kernel at band capacity 16),
+    "smem" (the first port's shared-memory kernel, for wider bands) or
+    "steps" (no s-step window fits: s launches of K2); ``tile`` rows owned
+    per tile with ``halo`` rows a side; ``vecs`` vectors of ``rows`` rows
+    per thread and band capacity ``bw`` of the register kernel; ``smem``
+    bytes of shared memory per block."""
 
     variant: str
     tile: int
     halo: int
-    quads: int
+    vecs: int
+    rows: int
     bw: int
     smem: int
 
 
-STEPS_PLAN = K1Plan("steps", 0, 0, 0, 0, 0)
+STEPS_PLAN = K1Plan("steps", 0, 0, 0, 0, 0, 0)
 
 
 def k1_smem(nd: int, window: int, bw: int, item: int) -> int:
     """Shared memory of a K1 block (csrc/dia_powers.cu ``fused``).  The
     register kernel (``bw`` > 0) stages the next tile's planes and x and
-    keeps two step buffers with a guard of whole quads a side; the fallback
-    holds the planes and two vectors."""
+    keeps two step buffers with a guard of whole vectors (16 rows at BW =
+    16, 4 * ceil(BW / 4) below) a side; the shared-memory kernel holds the
+    planes and two vectors."""
     if bw:
         guard = 4 * ((bw + 3) // 4)
         return ((nd + 1) * window + 2 * (window + 2 * guard)) * item
     return (nd + 2) * window * item
 
 
-def k1_plan(nd: int, wmax: int, s: int, dtype: torch.dtype, distinct: bool = True) -> K1Plan:
+def k1_plan(nd: int, wmax: int, s: int, dtype: torch.dtype) -> K1Plan:
     """How K1 runs ``s`` steps of ``nd`` diagonals at most ``wmax`` from the
-    main one.  The register kernel takes distinct offsets inside the widest
-    band it is built for, with its halo rounded up to a quad and at most
-    the tile for s > 1; otherwise the fallback takes the widest tile of
-    4096..256 rows whose halo ``s*max(wmax, 1)`` is at most the tile and
-    that fits shared memory, preferring room for two blocks per SM (the
-    first port's rule, so every shape it ran still runs); otherwise K2."""
+    main one (repeated offsets allowed).  The register kernel of the
+    narrowest band capacity that holds ``wmax`` (1, 2, 4, 8 or 16) takes
+    it when its halo, rounded up to a vector, is at most the tile for s > 1
+    and its staging fits; otherwise the shared-memory kernel takes the
+    widest tile of 4096..256 rows whose halo ``s*max(wmax, 1)`` is at most
+    the tile and that fits shared memory, preferring room for two blocks
+    per SM (the first port's rule, so every shape it ran still runs);
+    otherwise K2."""
     if not 0 < nd <= MAX_DIAGS or not 0 < s <= MAX_STEPS:
         return STEPS_PLAN
     item = torch.empty((), dtype=dtype).element_size()
-    quads = K1_REG_QUADS[item]
-    bw = next((b for b in sorted(quads) if b >= wmax), None)
-    if distinct and bw is not None:
-        window = 4 * K1_THREADS * quads[bw]
-        halo = -(-s * wmax // 4) * 4
+    reg = K1_REG[item]
+    bw = next((b for b in sorted(reg) if b >= wmax), None)
+    if bw is not None:
+        rows, vecs = reg[bw]
+        window = rows * K1_THREADS * vecs
+        halo = -(-s * wmax // rows) * rows
         tile = window - 2 * halo
         smem = k1_smem(nd, window, bw, item)
-        if tile >= max(4, halo if s > 1 else 0) and smem <= SMEM_MAX:
-            return K1Plan("reg", tile, halo, quads[bw], bw, smem)
+        if tile >= max(rows, halo if s > 1 else 0) and smem <= SMEM_MAX:
+            return K1Plan("reg" if bw <= 8 else "band", tile, halo, vecs, rows, bw, smem)
     halo = s * max(wmax, 1)
     for budget in (SMEM_TARGET, SMEM_MAX):
         for t in (4096, 2048, 1024, 512, 256):
             smem = k1_smem(nd, t + 2 * halo, 0, item)
             if halo <= t and smem <= budget:
-                return K1Plan("smem", t, halo, 0, 0, smem)
+                return K1Plan("smem", t, halo, 0, 0, 0, smem)
     return STEPS_PLAN
 
 
 def k1_plan_for(offsets: Sequence[int], s: int, dtype: torch.dtype) -> K1Plan:
-    """:func:`k1_plan` for these offsets (a repeated one rules out the
-    register kernel)."""
-    return k1_plan(len(offsets), max(abs(o) for o in offsets), s, dtype,
-                   distinct=len(set(offsets)) == len(offsets))
+    """:func:`k1_plan` for these offsets."""
+    return k1_plan(len(offsets), max(abs(o) for o in offsets), s, dtype)
 
 
 def fused_tile(nd: int, wmax: int, s: int, dtype: torch.dtype) -> int:
@@ -260,7 +270,7 @@ def dia_powers_fused(data: torch.Tensor, x: torch.Tensor, coefs, offsets: Sequen
     with torch.cuda.device(x.device):
         rc = fn(data.data_ptr(), offs, len(offsets), x.data_ptr(),
                 None if c is None else c.ctypes.data, V.data_ptr(), last.data_ptr(),
-                n, s, plan.tile, plan.halo, plan.bw, plan.quads,
+                n, s, plan.tile, plan.halo, plan.bw, plan.vecs,
                 torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "dia_powers_fused")
     LAUNCHES["dia_powers_fused"] += 1

@@ -33,8 +33,8 @@ The TPU kernels' x-span staging (double-buffered window DMA into VMEM,
 the rolled span table, the 8-row SMEM blocking of ``cbase``) is not part
 of this format's contract: the CUDA kernels gather x through L2 and
 decode ``span_row``/``cbase`` themselves.  ``slot_count`` is the port's
-own addition (the planes stay the JAX package's bits): K4 stops each
-128-row group at its last occupied slot.
+own addition (the planes stay the JAX package's bits): K4 and K5 stop
+each 128-row group at its last occupied slot.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ class PellMatrix:
     span_row : (ntiles, n_win) int32 window starts in 128-element chunks.
     slot_count : (ntiles, tile/128) int32, per 128-row group one plus the
         index of its last slot holding a nonzero value (0 for an empty
-        group): K4 walks only the slots below it.  Derived from ``vals``
+        group): K4 and K5 walk only the slots below it.  Derived from ``vals``
         (:func:`pell_slot_counts`) when not given; ``to`` and
         ``dataclasses.replace`` carry it.  Over-counting is safe (the
         extra slots are zeros); under-counting drops nonzeros, so a
@@ -850,20 +850,23 @@ def pell_slot_counts(vals: torch.Tensor, ntiles: int, K: int, tile: int) -> torc
 
 def pell_step_bytes(A: PellMatrix) -> Tuple[int, int]:
     """(bytes one step must move, bytes of the full planes + vectors),
-    the bound's numerator.  Unit encoding: the occupied prefix of each
-    group's slots of vals, lidx and cbase (taken from vals itself, so it
-    counts what the function needs whichever kernel runs), plus the
-    per-group counts and span_row; grouped: every plane.  Both add x
-    (n_x) and v_prev read once, y (n_pad) written once."""
+    the bound's numerator.  The occupied prefix of each group's slots
+    (taken from vals itself, so it counts what the function needs
+    whichever kernel runs) of vals and lidx, with the cbase entries it
+    uses (unit: one a slot; grouped: NW per used slot-tile of 8), plus the
+    per-group counts and span_row.  Both add x (n_x) and v_prev read once,
+    y (n_pad) written once."""
     item = A.vals.element_size()
     vectors = (A.n_x + 2 * A.n_pad) * item
     full = sum(t.numel() * t.element_size()
                for t in (A.vals, A.lidx, A.cbase, A.span_row)) + vectors
-    if A.enc != "unit":
-        return full, full
-    groups = A.ntiles * (A.tile // LANES)
-    slots = int(pell_slot_counts(A.vals, A.ntiles, A.k_slots, A.tile).sum())
-    need = (slots * (LANES * (item + A.lidx.element_size()) + 4) + groups * 4
+    counts = pell_slot_counts(A.vals, A.ntiles, A.k_slots, A.tile)
+    slots = int(counts.sum())
+    if A.enc in GROUPED_GEOM:
+        bases = int(((counts + SLOTS - 1) // SLOTS).sum()) * GROUPED_GEOM[A.enc][0]
+    else:
+        bases = slots
+    need = (slots * LANES * (item + A.lidx.element_size()) + (bases + counts.numel()) * 4
             + A.span_row.numel() * 4 + vectors)
     return need, full
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time K1, K3 and K4 of two trees of the port on one GPU, in turns.
+"""Time K1, K3, K4 and K5 of two trees of the port on one GPU, in turns.
 
 Run from the root of a checkout, with the other tree unpacked beside it
 (for instance the parent commit: ``mkdir -p build/parent && git archive
@@ -15,22 +15,28 @@ one tree.  The inputs are chip_smoke.py phase 1's: K1
 (``dia_powers_fused``) on bench.py's operator (4,194,304 rows x 9
 diagonals, s = 8, Newton coefficients from the bootstrap) and on main path
 A's tridiagonal (11,010,048 rows, s = 8); K3 (``dia_powers_ilv``) on
-bench.py's operator; K4 (``pell_step``, unit encoding) on the
-11,010,048-row PELL oracle matrix; f32 and f64, timed as chip_smoke times
-them (``time_ms``: CUDA events around runs of back-to-back calls, median
-of 20 runs).  Each run checks its kernels against the plain versions
-(chip_smoke's bounds).  The last line is one JSON object {"device": ...,
-"runs": [{"tree": ..., "kernels": {...}}, ...]}.
+bench.py's operator; K4 and K5 (``pell_step``; unit, grouped and grouped4
+encodings) on the 11,010,048-row PELL oracle matrix, each with the
+tree's ``pell_step_bytes`` (the bytes the step needs, the full planes);
+f32 and f64; and K1 at phase H's DIA form (10,485,760 rows, 31 diagonals
+inside +-15, f32, s = 2, 4, 8, 16, Newton coefficients) and at phase
+K(c)'s f64 shard (the same planes with 60 zero rows a side, s = 4).  All
+are timed as chip_smoke times them (``time_ms``: CUDA events around runs
+of back-to-back calls, median of 20 runs).  Each run checks its kernels
+against the plain versions (chip_smoke's bounds).  The last line is one
+JSON object {"device": ..., "runs": [{"tree": ..., "kernels": {...}},
+...]}: "device" is nvidia-smi's name and power limit.
 
     python3 chip_compare.py --k1-split
 
-splits this tree's register K1 instead, at the same two shapes: it builds
-``csrc/dia_powers.cu`` five times (``-DDIA_K1_DROP=0..4``: the kernel,
-and builds that never re-stage, skip the steps' reads and arithmetic, skip
-the V stores, or store V from the threads instead of bulk copies) and
-times each, the kernel at the other number of quads per thread, and a
-device copy of the same bytes, in one process.  Without a CUDA device it
-exits non-zero.
+splits this tree's register K1 instead, at the same two shapes and at the
+wide-band kernel's (phase H's DIA form at s = 4 and 16, f32; K(c)'s f64
+shard at s = 4): it builds ``csrc/dia_powers.cu`` five times
+(``-DDIA_K1_DROP=0..4``: the kernel, and builds that never re-stage, skip
+the steps' reads and arithmetic, skip the V stores, or store V from the
+threads instead of bulk copies) and times each, the kernel at the other
+number of vectors per thread where that fits, and a device copy of the
+same bytes, in one process.  Without a CUDA device it exits non-zero.
 """
 
 import dataclasses
@@ -53,8 +59,8 @@ def k1_shapes(cs) -> dict:
 
 
 def time_tree(root: str, csr_path: str) -> dict:
-    """Time K1, K3 and K4 of the package under ``root`` (run in a process
-    of its own, so that the two trees' packages never meet)."""
+    """Time K1, K3, K4 and K5 of the package under ``root`` (run in a
+    process of its own, so that the two trees' packages never meet)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -99,32 +105,67 @@ def time_tree(root: str, csr_path: str) -> dict:
         import scipy.sparse as sp
 
         a32 = sp.csr_matrix((z["data"], z["indices"], z["indptr"]), shape=tuple(z["shape"]))
-    A32 = pell.PellMatrix.from_scipy(a32, encoding="unit", native=True, device="cuda")
     n = a32.shape[0]
     rng = np.random.default_rng(7)
     xv = np.asarray(rng.standard_normal(n), np.float32)
     vp = np.asarray(rng.standard_normal(n), np.float32)
-    for dt in (torch.float32, torch.float64):
-        name = str(dt).split(".")[-1]
-        A = A32 if dt == torch.float32 else dataclasses.replace(A32, vals=A32.vals.to(dt))
-        X = torch.zeros(A.n_x, dtype=dt, device="cuda")
-        P = torch.zeros_like(X)
-        X[:n] = torch.as_tensor(xv, dtype=dt, device="cuda")
-        P[:n] = torch.as_tensor(vp, dtype=dt, device="cuda")
-        kern = lambda: cuda_pell.pell_step(A, X, P, 0.7, -0.3)  # noqa: E731
-        cs.check_row(torch, "pell_step_unit", name, kern(), pell.pell_step_ref(A, X, P, 0.7, -0.3))
-        out[f"pell_step_unit/{name}"] = cs.time_ms(torch, kern)
-        need, full = cs.pell_bytes(torch, A)
-        out[f"pell_step_unit/{name}/bytes"] = [need, full]
-        del A, X, P
+    for enc in ("unit", "grouped", "grouped4"):
+        A32 = pell.PellMatrix.from_scipy(a32, encoding=enc, native=True, device="cuda")
+        kname = "pell_step_unit" if enc == "unit" else f"pell_step_grouped/{enc}"
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).split(".")[-1]
+            A = A32 if dt == torch.float32 else dataclasses.replace(A32, vals=A32.vals.to(dt))
+            X = torch.zeros(A.n_x, dtype=dt, device="cuda")
+            P = torch.zeros_like(X)
+            X[:n] = torch.as_tensor(xv, dtype=dt, device="cuda")
+            P[:n] = torch.as_tensor(vp, dtype=dt, device="cuda")
+            kern = lambda: cuda_pell.pell_step(A, X, P, 0.7, -0.3)  # noqa: E731
+            cs.check_row(torch, kname, name, kern(), pell.pell_step_ref(A, X, P, 0.7, -0.3))
+            out[f"{kname}/{name}"] = cs.time_ms(torch, kern)
+            out[f"{kname}/{name}/bytes"] = list(pell.pell_step_bytes(A))
+            del A, X, P
+        del A32
+        torch.cuda.empty_cache()
+
+    # K1 at phase H's DIA form (31 diagonals inside +-15, f32) and at phase
+    # K(c)'s f64 shard (the same planes with 60 zero rows a side, s = 4,
+    # zero coefficients, as parallel/smoke.py kernel_rows runs it)
+    B, _ = cs.bsr_operator(torch)
+    D = B.to_dia()
+    del B
+    offsets = tuple(D.offsets)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(D.data.shape[1]),
+                        dtype=torch.float32, device="cuda")
+    x /= torch.linalg.norm(x)
+    for s in (2, 4, 8, 16):
+        coefs = cs.newton_coefs(torch, D.data, offsets, x, s)
+        kern = lambda: cuda_spmv.dia_powers_fused(D.data, x, coefs, offsets, s)  # noqa: E731
+        got, ref = kern(), cuda_spmv.dia_powers_fused_ref(D.data, x, coefs, offsets, s)
+        cs.check_row(torch, "dia_powers_fused (H)", "float32", got[0], ref[0])
+        del got, ref
+        out[f"dia_powers_fused/bsr_dia/s{s}/float32"] = cs.time_ms(torch, kern)
+    del x
+    D64 = torch.nn.functional.pad(D.data.double(), (60, 60))
+    del D
+    torch.cuda.empty_cache()
+    x64 = torch.as_tensor(np.random.default_rng(2).standard_normal(D64.shape[1]),
+                          device="cuda")
+    zeros = np.zeros((4, 2))
+    kern = lambda: cuda_spmv.dia_powers_fused(D64, x64, zeros, offsets, 4)  # noqa: E731
+    got, ref = kern(), cuda_spmv.dia_powers_fused_ref(D64, x64, zeros, offsets, 4)
+    cs.check_row(torch, "dia_powers_fused (K(c))", "float64", got[0], ref[0])
+    del got, ref
+    out["dia_powers_fused/kc_shard/s4/float64"] = cs.time_ms(torch, kern)
     return out
 
 
 def k1_split() -> dict:
     """Time this tree's register K1, and builds of it that each drop or
-    replace one part (``DIA_K1_DROP``), at both K1 shapes, f32 and f64; the
-    kernel also at the other number of quads per thread, and a device copy
-    of the same bytes."""
+    replace one part (``DIA_K1_DROP``), at both K1 shapes (s = 8, f32 and
+    f64) and at the wide-band kernel's (phase H's DIA form, f32, s = 4 and
+    16; K(c)'s f64 shard, s = 4); the kernel also at the other number of
+    vectors per thread where that fits, and a device copy of the same
+    bytes."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
@@ -152,12 +193,24 @@ def k1_split() -> dict:
 
     with ThreadPoolExecutor(len(drops)) as pool:
         libs = dict(pool.map(build, drops))
+    f32, f64 = torch.float32, torch.float64
+    # (label, planes, offsets, x, s, dtypes)
+    cases = [(shape, data, offsets, x, 8, (f32, f64))
+             for shape, (data, offsets, x) in k1_shapes(cs).items()]
+    B, _ = cs.bsr_operator(torch)
+    D = B.to_dia()
+    del B
+    xh = np.random.default_rng(1).standard_normal(D.data.shape[1])
+    cases += [(f"bsr_dia_s{s}", D.data, tuple(D.offsets), xh, s, (f32,)) for s in (4, 16)]
+    cases.append(("kc_shard", torch.nn.functional.pad(D.data.double(), (60, 60)),
+                  tuple(D.offsets), np.random.default_rng(2).standard_normal(
+                      D.data.shape[1] + 120), 4, (f64,)))
+    del D
     out = {}
-    s = 8
-    for shape, (data, offsets, x) in k1_shapes(cs).items():
+    for shape, data, offsets, x, s, dtypes in cases:
         coefs = cs.newton_coefs(torch, data, offsets, x, s)
         offs = (ctypes.c_int * len(offsets))(*offsets)
-        for dt in (torch.float32, torch.float64):
+        for dt in dtypes:
             name = str(dt).split(".")[-1]
             D = torch.as_tensor(data, dtype=dt, device="cuda")
             X = torch.as_tensor(x, dtype=dt, device="cuda")
@@ -167,10 +220,10 @@ def k1_split() -> dict:
             ref = cuda_spmv.dia_powers_fused_ref(D, X, coefs, offsets, s)[0]
             plan = cuda_spmv.k1_plan_for(offsets, s, dt)
             item = D.element_size()
-            runs = [(label, drop, plan.quads) for drop, label in drops.items()]
-            runs += [(f"quads={q}", 0, q) for q in (1, 2) if q != plan.quads]
-            for label, drop, quads in runs:
-                window = 4 * cuda_spmv.K1_THREADS * quads
+            runs = [(label, drop, plan.vecs) for drop, label in drops.items()]
+            runs += [(f"vecs={q}", 0, q) for q in (1, 2) if q != plan.vecs]
+            for label, drop, vecs in runs:
+                window = plan.rows * cuda_spmv.K1_THREADS * vecs
                 tile = window - 2 * plan.halo
                 if tile < max(4, plan.halo) or cuda_spmv.k1_smem(
                         len(offsets), window, plan.bw, item) > cuda_spmv.SMEM_MAX:
@@ -180,7 +233,7 @@ def k1_split() -> dict:
                 def kern():
                     rc = fn(D.data_ptr(), offs, len(offsets), X.data_ptr(), coefs.ctypes.data,
                             V.data_ptr(), last.data_ptr(), n, s, tile, plan.halo, plan.bw,
-                            quads, torch.cuda.current_stream().cuda_stream)
+                            vecs, torch.cuda.current_stream().cuda_stream)
                     if rc != 0:
                         raise RuntimeError(f"K1 {label} launch failed: CUDA error {rc}")
 
@@ -189,8 +242,8 @@ def k1_split() -> dict:
                 if drop in (0, 4):
                     cs.check_row(torch, f"dia_powers_fused {label}", name, V, ref)
                 out[f"{shape}/{name}/{label}"] = cs.time_ms(torch, kern)
-                cs.log(f"k1 split {shape} [{name}] {label} (tile {tile}, halo {plan.halo}, "
-                       f"bw {plan.bw}): {out[f'{shape}/{name}/{label}']:.4f} ms")
+                cs.log(f"k1 split {shape} [{name}] {label} ({plan.variant}, tile {tile}, halo "
+                       f"{plan.halo}, bw {plan.bw}): {out[f'{shape}/{name}/{label}']:.4f} ms")
             # yardstick: a device copy moving as many bytes as K1's bound
             # counts, half read and half written
             half = (len(offsets) + 1 + s + 1) * n // 2
@@ -249,6 +302,8 @@ def main() -> int:
             runs.append({"tree": tree, "kernels": times})
             print(f"{tree}: " + " ".join(f"{k}={v:.4f}ms" for k, v in times.items()
                                          if not k.endswith("/bytes")), flush=True)
+            print(f"{tree} bytes: " + " ".join(f"{k}={v}" for k, v in times.items()
+                                               if k.endswith("/bytes")), flush=True)
     print(json.dumps({"device": smi, "runs": runs}))
     return 0
 

@@ -13,8 +13,8 @@ Phase 1  each kernel against its plain PyTorch version on the card, f32 and
          median over 20 reps of a run of 10 back-to-back calls, over 10, so
          that the wrappers' host work overlaps the card's), the bound (bytes each input read once
          and each output written once over 3.35 TB/s, or operations over the
-         peak rate, whichever is larger; for K4 the occupied slots only, the
-         full planes printed beside them) and one torch.sparse CSR matvec of
+         peak rate, whichever is larger; for K4 and K5 the occupied slots
+         only, the full planes printed beside them) and one torch.sparse CSR matvec of
          the same matrix as the library yardstick.  A kernel timed faster
          than its bound fails the run.
          K1-K3 at bench.py's operator (4,194,304 rows x 9 diagonals, s=8,
@@ -83,7 +83,7 @@ Phase H  BASELINE.json configs[4] on one card: exp/bsr_10m_e2e.py:59-84's
          25, 16)).  (a) ``restarted_ca_lanczos(A, x, 16, LanczosConfig(s=4,
          n_wanted=3, tol=1e-4, max_restarts=30))`` on the ``BsrMatrix``
          (gather + einsum over the tiles) and on ``A.to_dia()`` (31
-         diagonals inside +-15: K1's shared-memory fallback); each must
+         diagonals inside +-15: K1's wide-band kernel); each must
          converge with top-3 relative error <= 1e-6.  (b) ``sstep_lanczos``
          (s=4, m=3) on the DIA form in f64: its Ritz values equal full-orth
          ``lanczos`` over 12 steps to rtol 1e-5, and its monomial powers
@@ -94,7 +94,10 @@ Phase H  BASELINE.json configs[4] on one card: exp/bsr_10m_e2e.py:59-84's
          ones.  Phase 1 also prints K1 at this DIA shape for s in
          {2, 4, 8, 16} (configs[4]'s sweep) beside s x one BSR matvec of
          the port and s x one torch.sparse CSR matvec (and the BSR product
-         as one torch.bmm of one column, for comparison).
+         as one torch.bmm of one column, for comparison); its s = 4 row
+         (phase H's solves) is the JSON line's "dia_powers_band", K1's
+         wide-band kernel, which H(a)'s DIA route, one corpus member of
+         I(b) and K(c)'s s-step solve must launch.
 Phase I  the file-in entry.  (a) Phase 3's matrix in float64
          (``flagship(4194304)``) written with the port's ``save_mtx(...,
          symmetric=True)`` (8,388,607 stored entries) into a temporary
@@ -196,7 +199,7 @@ Phase K  the distributed layer's second slice: one ``parallel.runtime.
          ``dist_restarted_ca_lanczos(A, x, 16, LanczosConfig(s=4,
          n_wanted=3, tol=1e-4, max_restarts=30))`` (converged, top-3
          relative error <= 1e-6), and ``dist_sstep_lanczos`` (s=4, m=3) on
-         its f64 DIA form (31 diagonals: K1 smem, K2) against the single
+         its f64 DIA form (31 diagonals: K1's wide-band kernel, K2) against the single
          card's ``sstep_lanczos``: max |dT| / max |T| <= 1e-10.  (d)
          ``dist_propagate_split`` of phase G(b)'s oscillator (4,194,304
          rows) as a 5-offset circulant f64 DistDia (``periodic=True``,
@@ -860,7 +863,9 @@ def bsr_csr(torch, A):
 def phase1_bsr(torch):
     """K1 at the DIA form of phase H's BSR (31 diagonals inside +-15, f32)
     for s in {2, 4, 8, 16}, beside s x one BSR matvec of the port and s x
-    one torch.sparse CSR matvec (printed, not in the JSON line)."""
+    one torch.sparse CSR matvec; returns the row of s = 4 (phase H's
+    solve) for the JSON line as "dia_powers_band", K1's wide-band kernel
+    (its own launch count; no single library call does s steps)."""
     from ca_lanczos_tpu_torch.ops import cuda_spmv
 
     t0 = time.perf_counter()
@@ -896,19 +901,30 @@ def phase1_bsr(torch):
     del csr, y0
     torch.cuda.empty_cache()
     item = 4
+    out = []
     for s in (2, 4, 8, 16):
         plan = cuda_spmv.k1_plan_for(D.offsets, s, torch.float32)
+        if plan.variant != "band":
+            raise AssertionError(f"K1 at the BSR's DIA form, s={s}: plan {plan.variant!r}, "
+                                 "expected the wide-band kernel")
         coefs = newton_coefs(torch, D.data, D.offsets, x, s)
-        dia_row(torch, f"dia_powers_fused (BSR DIA, {plan.variant} tile {plan.tile})",
-                "float32", n, nd, nnz, s, (nd + 1 + s + 1) * n * item,
-                s * (2 * nnz + 4 * n),
-                lambda: cuda_spmv.dia_powers_fused(D.data, x, coefs, D.offsets, s),
-                lambda: cuda_spmv.dia_powers_fused_ref(D.data, x, coefs, D.offsets, s),
-                plain_reps=3, plain_batch=1)
+        abs_err, ms, plain_ms, bms, by = dia_row(
+            torch, f"dia_powers_fused (BSR DIA, {plan.variant} tile {plan.tile})",
+            "float32", n, nd, nnz, s, (nd + 1 + s + 1) * n * item, s * (2 * nnz + 4 * n),
+            lambda: cuda_spmv.dia_powers_fused(D.data, x, coefs, D.offsets, s),
+            lambda: cuda_spmv.dia_powers_fused_ref(D.data, x, coefs, D.offsets, s),
+            plain_reps=3, plain_batch=1)
         log(f"  beside K1 at s={s}: s x BSR matvec {s * bsr_ms:.4f} ms, "
             f"s x CSR {s * csr_ms:.4f} ms")
+        if s == 4:
+            out.append(dict(name="dia_powers_band", route="cuda",
+                            source="ca_lanczos_tpu_torch/csrc/dia_powers.cu",
+                            replaces="ca_lanczos_tpu/ops/pallas_spmv.py:403",
+                            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                            bound_by=by, library_ms=None))
     del A, D, x
     torch.cuda.empty_cache()
+    return out
 
 
 def _k12(delta: dict) -> str:
@@ -1083,8 +1099,8 @@ def phase_h(torch, totals: dict, nb: int = BSR_NB):
             f"peak {peak:.2f} GiB launches {_k12(delta)}")
         if not (res.converged and err <= 1e-6):
             raise AssertionError(f"H(a) {label}: converged={res.converged} err={err:.3e}")
-        if Op is D and not delta["dia_powers_fused"] > 0:
-            raise AssertionError("H(a): K1 not launched on the DIA route")
+        if Op is D and not delta["dia_powers_band"] > 0:
+            raise AssertionError("H(a): K1's wide-band kernel not launched on the DIA route")
         del res
     del A
     D64 = DiaMatrix(data=D.data.double(), offsets=D.offsets)
@@ -1218,7 +1234,7 @@ def phase_i(torch, totals: dict, rows: list, n_file: int = FILE_N) -> None:
     log(f"I(b) build_corpus(small=False): {len(corpus)} members in "
         f"{time.perf_counter() - t0:.1f}s")
     cfg = LanczosConfig(s=6, orth=Orth.FULL, n_wanted=10, tol=1e-8, max_restarts=100)
-    bad = []
+    bad, band = [], []
     for name, (A, exact) in corpus.items():
         r = np.random.default_rng(0).random(A.shape[0])
         # the kernels at this member's shape, before (not in) its counted solve
@@ -1233,8 +1249,13 @@ def phase_i(torch, totals: dict, rows: list, n_file: int = FILE_N) -> None:
             f"launches {_k12(delta)} {note}")
         if not (res.converged and err <= 1e-6):
             bad.append((name, res.converged, err))
+        if delta["dia_powers_band"]:
+            band.append(name)
     if bad:
         raise AssertionError(f"I(b) corpus members failed: {bad}")
+    log(f"I(b) members whose solve launched K1's wide-band kernel: {band}")
+    if not band:
+        raise AssertionError("I(b): no corpus solve launched K1's wide-band kernel")
     del corpus
 
     # (c) the profiling tools on bench.py's operator
@@ -1533,6 +1554,8 @@ def phase_k(torch, totals: dict, a32, pell_exact, nb: int = BSR_NB, n_osc: int =
         "K(c) top3_rel_err <= 1e-6": err_c <= 1e-6,
         "K(c) dist powers == single card's (1e-5)": c["powers_gap"] <= BOUND["float32"],
         "K(c) sstep T <= 1e-10": dT <= 1e-10,
+        "K(c) sstep launched K1's wide-band kernel": c["sstep_launches"].get(
+            "dia_powers_band", 0) > 0,
     })
 
     # K(d): distributed propagation at G(b)'s physics
@@ -1586,7 +1609,7 @@ def main() -> int:
     log(f"PELL oracle matrix: n={PELL_N} nnz={a32.nnz} built in "
         f"{time.perf_counter() - t0:.1f}s (from the start of phase 1)")
     rows += phase1_pell(torch, a32)
-    phase1_bsr(torch)
+    rows += phase1_bsr(torch)
     log(f"phase 1 (kernels vs plain): {time.perf_counter() - t0:.1f}s")
 
     totals: dict = {}

@@ -212,6 +212,41 @@ def test_k4_skips_only_padding_slots(cuda, case, dtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("enc", ["grouped", "grouped4"])
+@pytest.mark.parametrize("case", ["sparse_groups", "two_passes", "band"])
+def test_k5_skips_only_padding_slots(cuda, case, enc, dtype):
+    # empty groups, a group at full K (past 64 slots its index rows are
+    # staged in two passes) and groups that fill part of the last slot-tile
+    a = {"sparse_groups": lambda: _sparse_groups(24),
+         "two_passes": lambda: _sparse_groups(72, n=12000),
+         "band": lambda: _pell_matrix(20_000 + 11, seed=9)}[case]()
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    A = pell.PellMatrix.from_scipy(a.astype(npdt), tile=512, encoding=enc, device=cuda)
+    counts = A.slot_count.cpu()
+    assert A.enc == enc and (counts < A.k_slots).any()
+    if case != "band":
+        assert (counts == 0).any() and int(counts.max()) == A.k_slots
+    else:
+        assert (counts % pell.SLOTS != 0).any()
+    n = a.shape[0]
+    rng = np.random.default_rng(11)
+    x = torch.zeros(A.n_x, dtype=dtype, device=cuda)
+    vp = torch.zeros_like(x)
+    x[:n] = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    vp[:n] = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda)
+    for v_prev, d, sb in ((vp, 0.7, -0.3), (None, -0.2, 0.0)):
+        before = cuda_pell.LAUNCHES["pell_step_grouped"]
+        y = cuda_pell.pell_step(A, x, v_prev, d, sb)
+        assert cuda_pell.LAUNCHES["pell_step_grouped"] == before + 1
+        assert _rel(y, pell.pell_step_ref(A, x, v_prev, d, sb)) <= BOUND[dtype]
+    # a count that covers every slot reads the zeros too, with the same result
+    full = dataclasses.replace(A, slot_count=torch.full_like(A.slot_count, A.k_slots))
+    torch.testing.assert_close(cuda_pell.pell_step(full, x), cuda_pell.pell_step(A, x),
+                               rtol=BOUND[dtype], atol=BOUND[dtype] * float(x.abs().max()))
+    torch.cuda.synchronize()
+
+
 # (offsets, nq, s, with coefficients, with x_prev, expected route): the
 # register kernel at 3/9/16 diagonals, carry 2, nq below and not a multiple
 # of the tile, s = 1 and 8; the shared-memory fallback past 16 diagonals;
@@ -249,11 +284,14 @@ def test_k3_matches_plain(cuda, case, dtype):
     torch.cuda.synchronize()
 
 
-# (offsets, n, s, with coefficients, expected kernel): the register kernel
-# at 3/9/16/17 diagonals with n % 4 != 0, n below one tile, a ragged last
-# tile, s = 1 and 8, monomial steps and asymmetric offsets; the
-# shared-memory fallback for a wider band, more diagonals and a repeated
-# offset.
+# (offsets, n, s, with coefficients, expected kernel, or one per dtype
+# (f32, f64)): the register kernel at 3/9/16/17 diagonals with n % 4 != 0, n
+# below one tile, a ragged last tile, s = 1 and 8, monomial steps,
+# asymmetric offsets and a repeated offset; the wide-band kernel at phase
+# H's 31 diagonals inside +-15 (s = 2, 8 and 16; at s = 16 the f64 pairs
+# leave no tile, so f64 takes the shared-memory kernel), at 21 diagonals,
+# with repeated offsets, and on a corpus-like n <= 1000 window (33
+# diagonals inside +-16, s = 6); the shared-memory kernel for wider bands.
 K1_CASES = {
     "tri_ragged_tile": ((-1, 0, 1), 1_000_004, 8, True, "reg"),
     "nine_n_odd": (tuple(range(-4, 5)), 100_003, 8, True, "reg"),
@@ -264,9 +302,15 @@ K1_CASES = {
     "asym": ((-3, 0, 2), 65_548, 8, True, "reg"),
     "nd16": (tuple(range(-8, 8)), 30_002, 8, True, "reg"),
     "nd17": (tuple(range(-8, 9)), 30_001, 4, True, "reg"),
+    "repeated": ((-1, 0, 0, 1), 10_000, 8, True, "reg"),
+    "wide31_s2": (tuple(range(-15, 16)), 200_000, 2, True, "band"),
+    "wide31_s8": (tuple(range(-15, 16)), 200_003, 8, True, "band"),
+    "wide31_s16": (tuple(range(-15, 16)), 100_002, 16, True, ("band", "smem")),
+    "many_diagonals": (tuple(range(-10, 11)), 20_000, 8, True, "band"),
+    "wide_repeated": ((-12, -1, 0, 0, 5, 5, 12, 12), 30_001, 4, True, "band"),
+    "corpus_window": (tuple(range(-16, 17)), 1000, 6, True, "band"),
     "wide_band": ((-20, -1, 0, 1, 20), 30_000, 4, True, "smem"),
-    "many_diagonals": (tuple(range(-10, 11)), 20_000, 8, True, "smem"),
-    "repeated": ((-1, 0, 0, 1), 10_000, 8, True, "smem"),
+    "wide30": ((-30, -1, 0, 1, 30), 9000, 4, True, "smem"),
 }
 
 
@@ -274,6 +318,8 @@ K1_CASES = {
 @pytest.mark.parametrize("case", sorted(K1_CASES))
 def test_k1_matches_plain(cuda, case, dtype):
     offsets, n, s, with_coefs, variant = K1_CASES[case]
+    if isinstance(variant, tuple):
+        variant = variant[dtype == torch.float64]
     assert cuda_spmv.k1_plan_for(offsets, s, dtype).variant == variant
     D, X = _operands(n, offsets, dtype, cuda, seed=12)
     c = (np.stack([np.linspace(-0.3, 0.3, s), np.r_[0.0, np.full(s - 1, 0.01)]], 1)

@@ -205,47 +205,54 @@ def _check_plan(plan, nd, wmax, s, item):
     if s > 1:
         assert plan.halo <= plan.tile
     assert plan.smem == cuda_spmv.k1_smem(nd, window, plan.bw, item) <= cuda_spmv.SMEM_MAX
-    if plan.variant == "reg":
-        # whole quads for every thread, the halo and tile whole quads too
-        assert plan.quads == cuda_spmv.K1_REG_QUADS[item][plan.bw]
-        assert window == 4 * cuda_spmv.K1_THREADS * plan.quads
-        assert plan.halo % 4 == 0 and plan.tile % 4 == 0 and wmax <= plan.bw
+    if plan.variant in ("reg", "band"):
+        # whole vectors for every thread, the halo and tile whole vectors too;
+        # the narrowest band capacity that holds wmax, 16 for "band"
+        assert (plan.rows, plan.vecs) == cuda_spmv.K1_REG[item][plan.bw]
+        assert window == plan.rows * cuda_spmv.K1_THREADS * plan.vecs
+        assert plan.halo % plan.rows == 0 and plan.tile % plan.rows == 0
+        assert plan.bw == min(b for b in cuda_spmv.K1_REG[item] if b >= wmax)
+        assert (plan.variant == "band") == (plan.bw == 16)
     else:
-        assert (plan.quads, plan.bw) == (0, 0) and plan.halo == s * max(wmax, 1)
+        assert (plan.vecs, plan.rows, plan.bw) == (0, 0, 0) and plan.halo == s * max(wmax, 1)
 
 
-# (nd, max |offset|, s, variant): bench.py's shape and main path A's, a band
-# too wide for the register kernel, one too wide for any s-step window,
-# 16 and 17 diagonals inside +-8 (the register kernel's widest band) and 17
-# outside it, a single diagonal, and a halo that leaves the register
-# kernel's window no tile.
+# (nd, max |offset|, s, variant per dtype (f32, f64)): bench.py's shape and
+# main path A's, a band too wide for the register kernels, one too wide for
+# any s-step window, 16 and 17 diagonals inside +-8 (the narrow register
+# kernel's widest band) and 17 inside +-10 (the wide-band kernel), phase
+# H's 31 diagonals inside +-15 at s = 8 and at s = 16 (whose halo leaves
+# the f64 wide-band window, pairs of rows, no tile), a single diagonal, and
+# a halo that leaves every register window no tile.
 K1_PLAN_CASES = {
-    "bench": (9, 4, 8, "reg"),
-    "path_a": (3, 1, 8, "reg"),
-    "wide_band": (5, 100, 4, "smem"),
-    "too_wide": (5, 2000, 8, "steps"),
-    "nd16": (16, 8, 8, "reg"),
-    "nd17_in_band": (17, 8, 8, "reg"),
-    "nd17_wider": (17, 10, 8, "smem"),
-    "diagonal": (1, 0, 8, "reg"),
-    "many_steps": (9, 8, 64, "smem"),
+    "bench": (9, 4, 8, ("reg", "reg")),
+    "path_a": (3, 1, 8, ("reg", "reg")),
+    "wide_band": (5, 100, 4, ("smem", "smem")),
+    "too_wide": (5, 2000, 8, ("steps", "steps")),
+    "nd16": (16, 8, 8, ("reg", "reg")),
+    "nd17_in_band": (17, 8, 8, ("reg", "reg")),
+    "nd17_wider": (17, 10, 8, ("band", "band")),
+    "bsr_dia_s8": (31, 15, 8, ("band", "band")),
+    "bsr_dia_s16": (31, 15, 16, ("band", "smem")),
+    "diagonal": (1, 0, 8, ("reg", "reg")),
+    "many_steps": (9, 8, 64, ("smem", "smem")),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", sorted(K1_PLAN_CASES))
 def test_k1_plan(case, dtype):
-    nd, wmax, s, variant = K1_PLAN_CASES[case]
+    nd, wmax, s, variants = K1_PLAN_CASES[case]
     item = torch.empty((), dtype=dtype).element_size()
     plan = cuda_spmv.k1_plan(nd, wmax, s, dtype)
-    assert plan.variant == variant
+    assert plan.variant == variants[item == 8]
     _check_plan(plan, nd, wmax, s, item)
     assert cuda_spmv.fused_tile(nd, wmax, s, dtype) == plan.tile
-    # repeated offsets never take the register kernel (its band slots hold
-    # one plane each)
-    again = cuda_spmv.k1_plan(nd, wmax, s, dtype, distinct=False)
-    assert again.variant != "reg"
-    _check_plan(again, nd, wmax, s, item)
+    # a repeated offset takes the same plan (the register kernels sum its
+    # planes into one band slot)
+    if nd > 1:
+        offsets = [wmax, wmax] + [o % (2 * wmax + 1) - wmax for o in range(nd - 2)]
+        assert cuda_spmv.k1_plan_for(offsets, s, dtype) == plan
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -280,28 +287,32 @@ def _tiled_powers(data, x, coefs, offsets, s, plan):
     return V
 
 
-# (offsets, n, s, Newton coefficients): ragged and whole last tiles, n below
-# one tile, s = 1 and 8, asymmetric offsets, the widest register band, the
-# shared-memory fallback's window.
+# (offsets, n, s, Newton coefficients, variant): ragged and whole last
+# tiles, n below one tile, s = 1 and 8, asymmetric offsets, the widest
+# narrow register band; the wide-band kernel's f64 windows (pairs of rows)
+# at phase H's 31 diagonals and with a repeated offset; the shared-memory
+# kernel's window.
 K1_TILE_CASES = {
-    "tri_ragged": ((-1, 0, 1), 3 * 2040 + 37, 8, True),
-    "nine_whole": (tuple(range(-4, 5)), 4 * 960, 8, True),
-    "below_tile": (tuple(range(-4, 5)), 301, 8, False),
-    "one_step": ((-2, 0, 3), 2500, 1, True),
-    "asym": ((-3, 0, 2), 5003, 8, True),
-    "band16": (tuple(range(-8, 8)), 2 * 896 + 5, 8, True),
-    "smem": ((-30, -1, 0, 1, 30), 9000, 4, True),
+    "tri_ragged": ((-1, 0, 1), 3 * 2040 + 37, 8, True, "reg"),
+    "nine_whole": (tuple(range(-4, 5)), 4 * 960, 8, True, "reg"),
+    "below_tile": (tuple(range(-4, 5)), 301, 8, False, "reg"),
+    "one_step": ((-2, 0, 3), 2500, 1, True, "reg"),
+    "asym": ((-3, 0, 2), 5003, 8, True, "reg"),
+    "band16": (tuple(range(-8, 8)), 2 * 896 + 5, 8, True, "reg"),
+    "wide31": (tuple(range(-15, 16)), 3 * 392 + 11, 4, True, "band"),
+    "wide_repeated": ((-12, -1, 0, 0, 5, 5, 12), 2 * 352 + 3, 8, True, "band"),
+    "smem": ((-30, -1, 0, 1, 30), 9000, 4, True, "smem"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(K1_TILE_CASES))
 def test_k1_tiles_recompose_the_recurrence(case):
-    offsets, n, s, newton = K1_TILE_CASES[case]
+    offsets, n, s, newton, variant = K1_TILE_CASES[case]
     rng = np.random.default_rng(12)
     data = torch.as_tensor(rng.standard_normal((len(offsets), n)) * 0.3)
     x = torch.as_tensor(rng.standard_normal(n))
     c = _coefs(s, newton, seed=13)
     plan = cuda_spmv.k1_plan_for(offsets, s, torch.float64)
-    assert plan.variant == ("smem" if case == "smem" else "reg")
+    assert plan.variant == variant
     Vr, _ = cuda_spmv.dia_powers_fused_ref(data, x, c, offsets, s)
     _close_per_step(_tiled_powers(data, x, c, offsets, s, plan).numpy(), Vr.numpy(), 1e-12)

@@ -307,33 +307,92 @@ def _unit_counts(a, tile):
     return out.reshape(ntiles, tile // pell.LANES)
 
 
-def _unit_operator(path, a, kw, tmp_path):
+def _operator(path, enc, a, kw, tmp_path):
     if path in ("numpy", "native"):
-        return pell.PellMatrix.from_scipy(a, encoding="unit", device="cpu",
+        return pell.PellMatrix.from_scipy(a, encoding=enc, device="cpu",
                                           native=path == "native", **kw)
     if path == "jax_file":
-        J = jpell.PellMatrix.from_scipy(a, encoding="unit", device=False, native=False, **kw)
-        jformats.save_operator(str(tmp_path / "unit.npz"), J)
-        return formats.load_operator_npz(str(tmp_path / "unit.npz"), device="cpu")[0]
-    M = pell.PellMatrix.from_scipy(a, encoding="unit", device="cpu", native=False, **kw)
+        J = jpell.PellMatrix.from_scipy(a, encoding=enc, device=False, native=False, **kw)
+        jformats.save_operator(str(tmp_path / f"{enc}.npz"), J)
+        return formats.load_operator_npz(str(tmp_path / f"{enc}.npz"), device="cpu")[0]
+    M = pell.PellMatrix.from_scipy(a, encoding=enc, device="cpu", native=False, **kw)
     return formats.negate_operator(M) if path == "negate" else M.to("cpu")
 
 
+def _prefix_step(A, x, v_prev, d, sb):
+    """The step over each group's first ``slot_count`` slots alone: what
+    K4 and K5 read (entries past the count are masked, their columns never
+    used)."""
+    nt, K, T = A.ntiles, A.k_slots, A.tile
+    keep = torch.arange(K)[None, :, None] < A.slot_count.repeat_interleave(
+        pell.LANES, dim=1)[:, None, :]
+    cols = pell._columns(A).clamp(0, A.n_x - 1)
+    acc = torch.where(keep, A.vals.reshape(nt, K, T) * x[cols], 0.0).sum(dim=1).reshape(-1)
+    return acc - d * x[: A.n_pad] - sb * v_prev[: A.n_pad]
+
+
+# every pattern in every encoding that takes it: the grouped encoders refuse
+# wide_cluster (one row over 10 consecutive chunks, more than a slot-tile's
+# windows cover)
+SLOT_CASES = [(name, enc) for name in sorted(PATTERNS) + ["empty_groups"]
+              for enc in ("unit", "grouped", "grouped4")
+              if enc == "unit" or name != "wide_cluster"]
+
+
 @pytest.mark.parametrize("path", ["numpy", "native", "jax_file", "negate", "to"])
-@pytest.mark.parametrize("name", sorted(PATTERNS) + ["empty_groups"])
-def test_slot_count_is_the_unit_count(name, path, tmp_path):
-    # the property that lets K4 skip the padding slots exactly
+@pytest.mark.parametrize("name,enc", SLOT_CASES)
+def test_slot_count_is_the_unit_count(name, enc, path, tmp_path):
+    # the property that lets K4 and K5 skip the padding slots exactly
     a, kw = _csr(name) if name in PATTERNS else (_empty_groups(), dict(tile=512))
-    M = _unit_operator(path, a, kw, tmp_path)
-    assert M.enc == "unit" and M.slot_count.dtype == torch.int32
-    want = _unit_counts(a, M.tile)
-    np.testing.assert_array_equal(M.slot_count.numpy(), want)
+    M = _operator(path, enc, a, kw, tmp_path)
+    assert M.enc == enc and M.slot_count.dtype == torch.int32
+    if enc == "unit":
+        want = _unit_counts(a, M.tile)
+        np.testing.assert_array_equal(M.slot_count.numpy(), want)
+        if name == "empty_groups":
+            assert (want == 0).any() and want.max() == M.k_slots == 16
     B = M.tile // pell.LANES
     occupied = M.vals.reshape(M.ntiles, M.k_slots, B, pell.LANES).abs().amax(dim=3)
     past = torch.arange(M.k_slots)[None, :, None] >= M.slot_count[:, None, :]
     assert not bool(occupied[past].any())
-    if name == "empty_groups":
-        assert (want == 0).any() and want.max() == M.k_slots == 16
+    # the prefix alone gives the step: scramble every index entry past the
+    # count (lane and sub) and step over the prefix, f64
+    rng = np.random.default_rng(14)
+    M64 = dataclasses.replace(M, vals=M.vals.to(torch.float64))
+    code = M64.lidx.clone().reshape(M.ntiles, M.k_slots, B, pell.LANES)
+    top = 1 << (10 if enc != "unit" else 7)
+    noise = torch.as_tensor(rng.integers(0, top, code.shape)).to(code.dtype)
+    code[past[..., None].expand_as(code)] = noise[past[..., None].expand_as(code)]
+    scrambled = dataclasses.replace(M64, lidx=code.reshape(M64.lidx.shape))
+    x = torch.as_tensor(_x(M.n_x, 15))
+    vp = torch.as_tensor(_x(M.n_x, 16))
+    ref = pell.pell_step_ref(M64, x, vp, 0.7, -0.3)[: M.n_pad]
+    got = _prefix_step(scrambled, x, vp, 0.7, -0.3)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                               atol=1e-12 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("enc", ["unit", "grouped", "grouped4"])
+@pytest.mark.parametrize("name", ["clusters", "empty_groups"])
+def test_step_bytes_count_the_occupied_prefix(name, enc):
+    # the bound's numerator, counted by hand per 128-row group
+    a, kw = _csr(name) if name in PATTERNS else (_empty_groups(), dict(tile=512))
+    M = pell.PellMatrix.from_scipy(a, encoding=enc, device="cpu", **kw)
+    assert M.enc == enc
+    B = M.tile // pell.LANES
+    vals = M.vals.numpy().reshape(M.ntiles, M.k_slots, B, pell.LANES)
+    idx_item = 1 if enc == "unit" else 2
+    need = M.span_row.numel() * 4 + (M.n_x + 2 * M.n_pad) * 8
+    for t in range(M.ntiles):
+        for b in range(B):
+            used = [u for u in range(M.k_slots) if vals[t, u, b].any()]
+            cnt = used[-1] + 1 if used else 0
+            bases = cnt if enc == "unit" else -(-cnt // pell.SLOTS) * pell.GROUPED_GEOM[enc][0]
+            need += cnt * pell.LANES * (8 + idx_item) + bases * 4 + 4
+    full = sum(t.numel() * t.element_size() for t in (M.vals, M.lidx, M.cbase, M.span_row))
+    full += (M.n_x + 2 * M.n_pad) * 8
+    assert pell.pell_step_bytes(M) == (need, full)
+    assert need < full
 
 
 def test_slot_count_survives_a_dtype_replace():
