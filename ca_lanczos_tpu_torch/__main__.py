@@ -99,8 +99,8 @@ def main(argv=None):
     p.add_argument("--polish", type=int, default=0, metavar="N",
                    help="two-stage pipeline: N f64 Rayleigh-Ritz polish "
                    "passes on the converged block after the solve "
-                   "(device polish for banded f64 sources, host scipy CSR "
-                   "otherwise; works on both routes)")
+                   "(device polish for banded f64 sources, host OpenMP "
+                   "SpMM otherwise; works on both routes)")
     p.add_argument("--over-lock", type=int, default=0, metavar="K",
                    help="with --polish: lock K extra pairs for the polish "
                    "RR to discard (run the solve at a loose --tol, e.g. "

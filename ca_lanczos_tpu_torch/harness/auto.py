@@ -167,9 +167,9 @@ def solve_auto(
     ``polish`` > 0 runs that many f64 block-Krylov Rayleigh-Ritz passes on
     the converged block (solvers.polish): on the operator's device when
     the raw f64 input is DIA-representable and unpermuted, on the host
-    (scipy CSR in f64) otherwise.  ``over_lock`` locks that many EXTRA
-    pairs during the solve so the polish can discard sloppy directions
-    and still return ``cfg.n_wanted`` accurate pairs.
+    (the native OpenMP CSR SpMM in f64) otherwise.  ``over_lock`` locks
+    that many EXTRA pairs during the solve so the polish can discard
+    sloppy directions and still return ``cfg.n_wanted`` accurate pairs.
 
     TF32 is switched off for matmuls and cuDNN (process-wide PyTorch
     flags): the f32 Gram products must not round to TF32.
@@ -258,10 +258,11 @@ def solve_auto(
 
 def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int, device="cuda"):
     """f64 Rayleigh-Ritz polish of a converged block in the caller's
-    frame: device path for DIA-representable f64 sources, host path
-    (scipy CSR in f64) otherwise.  The device is the solve operator's, or
-    ``device`` when there is none (the distributed solve polishes the
-    gathered block against the raw matrix alone).  Returns (w
+    frame: device path for DIA-representable f64 sources, host path (the
+    native CSR SpMM in f64, ``ops._spmm_native``) otherwise.  The device
+    is the solve operator's, or ``device`` when there is none (the
+    distributed solve polishes the gathered block against the raw matrix
+    alone).  Returns (w
     desc-in-solve-frame, resid, Q (n, k) tensor) — w/resid aligned with
     Q's columns."""
     import scipy.sparse as sp
@@ -292,12 +293,13 @@ def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int, device=
         A64 = DiaMatrix(data=A_solve.data.double(), offsets=A_solve.offsets)
         return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
     # Host path: general sparsity (or permuted routes) against the raw f64
-    # matrix.  scipy's CSR product in f64 takes the place of the TPU
-    # package's native OpenMP SpMM (which silently drops columns >= 64).
-    mm = sp.csr_matrix(raw).astype(np.float64)
+    # matrix through the row-parallel native SpMM (scipy's product, bit for
+    # bit, on every column of the depth-4 panel).
+    from ca_lanczos_tpu_torch.ops._spmm_native import CsrMatmul
+
+    mm = CsrMatmul(sp.csr_matrix(raw).astype(np.float64))
     w, resid, Qp = rayleigh_ritz_polish_host(
-        (lambda Z: -(mm @ Z)) if sgn < 0 else (lambda Z: mm @ Z),
-        Q, iters=iters, depth=depth,
+        (lambda Z: -mm(Z)) if sgn < 0 else mm, Q, iters=iters, depth=depth,
     )
     return w, resid, torch.from_numpy(Qp)
 

@@ -44,12 +44,9 @@ def _load() -> Optional[ctypes.CDLL]:
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    so = build_native(NATIVE_SRC / "pell_encode.cpp", ["-O3", "-fopenmp"])
-    if so is None:
-        return None
     try:
-        lib = ctypes.CDLL(str(so))
-    except OSError:
+        lib = ctypes.CDLL(str(build_native(NATIVE_SRC / "pell_encode.cpp", ["-O3", "-fopenmp"])))
+    except (RuntimeError, OSError):
         return None
     lib.pell_plan_unit.restype = _i64
     lib.pell_plan_unit.argtypes = [

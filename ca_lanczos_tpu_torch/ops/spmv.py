@@ -135,6 +135,10 @@ class EllMatrix:
     def nnz(self) -> int:
         return self.vals.shape[0] * self.vals.shape[1]
 
+    def exact_nnz(self) -> int:
+        """Stored entries that are not zero (``nnz`` counts the padding)."""
+        return int((self.vals != 0).sum())
+
     def to(self, device) -> "EllMatrix":
         return EllMatrix(vals=self.vals.to(device), cols=self.cols.to(device))
 
@@ -149,6 +153,12 @@ class EllMatrix:
         rows = torch.arange(self.n, device=self.device)[:, None].expand_as(self.cols)
         out.index_put_((rows, self.cols), self.vals, accumulate=True)
         return out
+
+    @staticmethod
+    def from_dense(a, device="cuda") -> "EllMatrix":
+        import scipy.sparse as sp
+
+        return EllMatrix.from_scipy(sp.csr_matrix(np.asarray(a)), device=device)
 
     @staticmethod
     def from_scipy(a, device="cuda") -> "EllMatrix":

@@ -9,10 +9,13 @@ never loaded.  ``load_mtx`` returns COO numpy arrays, ``load_operator``
 the port's DIA (banded) or ELL operator on a device, and ``save_mtx``
 writes the JAX package's text byte for byte.
 
-Divergence from the JAX package: when the native library does not build
+Divergences from the JAX package: when the native library does not build
 or cannot open a file, ``load_mtx`` still parses in Python but warns
 (``RuntimeWarning``): at millions of entries the fallback costs minutes.
 ``native_available()`` says whether the native parser is in use.
+``load_mtx`` raises ValueError on a ``complex`` field or ``hermitian``
+symmetry, which the JAX package reads as a real matrix: the real part
+of each entry, and Hermitian storage's lower triangle alone.
 """
 
 from __future__ import annotations
@@ -37,10 +40,10 @@ def _load_lib() -> Optional[ctypes.CDLL]:
     if _TRIED:
         return _LIB
     _TRIED = True
-    so = build_native(NATIVE_SRC / "mmio.cpp", ["-O2"])
-    if so is None:
+    try:
+        lib = ctypes.CDLL(str(build_native(NATIVE_SRC / "mmio.cpp", ["-O2"])))
+    except RuntimeError:
         return None
-    lib = ctypes.CDLL(str(so))
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.mm_open.restype = ctypes.c_int64
     lib.mm_open.argtypes = [ctypes.c_char_p]
@@ -98,10 +101,23 @@ def _fallback(path: str, why: str):
     return _load_mtx_python(path)
 
 
+def _refuse_complex(path: str) -> None:
+    """Raise ValueError for a ``complex`` field or ``hermitian`` symmetry:
+    both parsers read one real value an entry and mirror only symmetric
+    and skew-symmetric storage."""
+    with open(path) as f:
+        header = f.readline().lower().split()
+    if "complex" in header[3:4] or "hermitian" in header[4:5]:
+        raise ValueError(f"{path}: complex and Hermitian Matrix Market files are not "
+                         f"supported (header {' '.join(header)!r})")
+
+
 def load_mtx(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]:
     """Read a .mtx file -> (row_idx, col_idx, values, (rows, cols)) COO,
     symmetric storage expanded.  Uses the native parser when available
-    and warns when it falls back to Python."""
+    and warns when it falls back to Python.  Raises ValueError on a
+    complex or Hermitian file."""
+    _refuse_complex(path)
     lib = _load_lib()
     if lib is None:
         return _fallback(path, "the native Matrix Market parser did not build")

@@ -27,6 +27,18 @@ Phase 1  each kernel against its plain PyTorch version on the card, f32 and
          K4 and K5 on the planes of exp/pell_10m_e2e.py's operator
          (11,010,048 rows, encoded "unit", "auto" (it must pick grouped)
          and "grouped4").
+Phase S  the host polish's SpMM: ``ops._spmm_native.CsrMatmul`` (the
+         OpenMP product of ``csrc/host_spmm.cpp``, built with g++ in phase
+         0) against scipy's ``a @ X`` on phase C's matrix in f64, as
+         ``harness.auto._polish_block`` passes it (the f32 CSR upcast;
+         11,010,048 rows, 84,156,726 nnz), at k = 13 (the polish's Q and B
+         panels) and k = 65 (its depth-4 Z panel): per column j, max_i
+         |Y_ij - (a @ X)_ij| <= 1e-15 max|a| max_i |X_ij| (bit for bit
+         expected).  Printed: the median seconds of 5 applies of each, the
+         host's CPU model, ``os.cpu_count()`` and ``torch.get_num_threads()``
+         (the SpMM's thread count).  The polish's host branch (path B: the
+         interleaved route's permutation) must run it: its applies count
+         as ``csr_spmm_host`` among the launches of each path.
 Phase 2  main path A: ``solve_auto`` on the 11,010,048-row f32 flagship
          tridiagonal (exp/flagship_10m.py's matrix), prefer="dia" -> K1,
          polish=10, over_lock=3; checked against the committed oracle.
@@ -272,9 +284,10 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 
 def counters():
-    from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_pell, cuda_spmv
+    """The kernels' launch counts and the host SpMM's apply count."""
+    from ca_lanczos_tpu_torch.ops import _spmm_native, cuda_ilv, cuda_pell, cuda_spmv
 
-    return (cuda_spmv.LAUNCHES, cuda_ilv.LAUNCHES, cuda_pell.LAUNCHES)
+    return (cuda_spmv.LAUNCHES, cuda_ilv.LAUNCHES, cuda_pell.LAUNCHES, _spmm_native.APPLIES)
 
 
 def phase0(torch):
@@ -292,6 +305,7 @@ def phase0(torch):
     from ca_lanczos_tpu_torch.ops import (
         _cuda_build,
         _pell_native,
+        _spmm_native,
         cuda_ilv,
         cuda_pell,
         cuda_spmv,
@@ -301,7 +315,7 @@ def phase0(torch):
 
     builds = {"dia_powers": cuda_spmv._lib, "ilv_powers": cuda_ilv._lib,
               "pell": cuda_pell._lib, "pell_encode (g++)": _pell_native.available,
-              "mmio (g++)": mmio.native_available}
+              "mmio (g++)": mmio.native_available, "host_spmm (g++)": _spmm_native.available}
 
     def build(item):
         t0 = time.perf_counter()
@@ -631,6 +645,62 @@ def phase1_pell(torch, a32):
     return out
 
 
+def host_cpu() -> str:
+    """The host's CPU model: /proc/cpuinfo's "model name" (x86) or its CPU
+    implementer and part (Arm), and the machine type."""
+    import platform
+
+    fields: dict = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            fields.setdefault(key.strip(), val.strip())
+    name = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("CPU implementer", "CPU part") if k in fields)
+    return f"{name or 'no model in /proc/cpuinfo'} ({platform.machine()})"
+
+
+def phase_s(torch, a32) -> None:
+    """The host polish's SpMM against scipy on path C's matrix (module
+    docstring, phase S)."""
+    import scipy.sparse as sp
+
+    from ca_lanczos_tpu_torch.ops._spmm_native import CsrMatmul
+
+    a = sp.csr_matrix(a32).astype(np.float64)
+    mm = CsrMatmul(a)
+    amax = float(np.abs(a.data).max())
+    log(f"S host: {host_cpu()}; os.cpu_count()={os.cpu_count()} "
+        f"torch.get_num_threads()={torch.get_num_threads()}")
+
+    def median_s(fn):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts)), out
+
+    X65 = np.random.default_rng(11).random((a.shape[0], 65))
+    failed = []
+    for k in (13, 65):
+        X = X65 if k == 65 else np.ascontiguousarray(X65[:, :k])
+        t_native, got = median_s(lambda: mm(X))
+        t_scipy, ref = median_s(lambda: a @ X)
+        err = np.abs(got - ref).max(axis=0)
+        bound = 1e-15 * amax * np.abs(X).max(axis=0)
+        log(f"S CsrMatmul k={k} (n={a.shape[0]}, nnz={a.nnz}, f64): native {t_native:.4f} s "
+            f"scipy {t_scipy:.4f} s an apply (median of 5; {t_scipy / t_native:.1f}x); "
+            f"max|Y - a @ X| {float(err.max()):.3e} (bound 1e-15 max|a| max|X_j| per column, "
+            f"the least {float(bound.min()):.3e}); bit for bit: {bool(np.array_equal(got, ref))}")
+        if not (err <= bound).all():
+            failed.append(k)
+        del X, got, ref
+    del X65
+    if failed:
+        raise AssertionError(f"phase S: the native SpMM disagrees with scipy at k = {failed}")
+
+
 def flagship_planes(n: int):
     """exp/flagship_10m.py:47-53: the planted-top tridiagonal's diagonal d
     and couplings off (A[i, i+1] = A[i+1, i] = off[i]), f64."""
@@ -802,7 +872,7 @@ def main_path(torch, label: str, a, exact, fmt: str, launched, totals: dict,
     if failed:
         raise AssertionError(f"{label} failed: {failed}")
     out = dict(restarts=res.n_restarts, stages=dict(res.stage_seconds), total=wall, peak=peak,
-               err=err)
+               err=err, applies=delta.get("csr_spmm_host", 0))
     del res, Q
     torch.cuda.empty_cache()
     return out
@@ -1611,6 +1681,7 @@ def main() -> int:
     rows += phase1_pell(torch, a32)
     rows += phase1_bsr(torch)
     log(f"phase 1 (kernels vs plain): {time.perf_counter() - t0:.1f}s")
+    phase(torch, "phase S (host SpMM vs scipy)", lambda: phase_s(torch, a32))
 
     totals: dict = {}
     fa, exact = flagship(11010048)
@@ -1620,17 +1691,21 @@ def main() -> int:
         torch, "phase 2 (main path A, DIA/K1)", fa32, exact, "dia", ["dia_powers_fused"],
         totals, engine="fused", prefer="dia"))
     fb, exact_b = flagship(4194304)
-    phase(torch, "phase 3", lambda: main_path(
+    # the interleaved route's permutation sends B's polish to the host SpMM
+    path_b = phase(torch, "phase 3", lambda: main_path(
         torch, "phase 3 (main path B, ilv/K3)", fb.astype(np.float32), exact_b, "ilv",
-        ["dia_powers_ilv"], totals, engine="fused", prefer="auto"))
+        ["dia_powers_ilv", "csr_spmm_host"], totals, engine="fused", prefer="auto"))
     del fb
     # phase 1 showed that encoding="auto" picks grouped on this matrix
-    phase(torch, "phase C", lambda: main_path(
+    path_c = phase(torch, "phase C", lambda: main_path(
         torch, "phase C (main path C, PELL grouped/K5)", a32, pell_exact, "pell",
         ["pell_step_grouped"], totals, engine="fused", prefer="pell", encoding="auto"))
-    phase(torch, "phase D", lambda: main_path(
+    path_d = phase(torch, "phase D", lambda: main_path(
         torch, "phase D (main path D, PELL unit/K4)", a32, pell_exact, "pell",
         ["pell_step_unit"], totals, engine="fused", prefer="pell", encoding="unit"))
+    for label, p in (("B", path_b), ("C", path_c), ("D", path_d)):
+        log(f"polish seconds: {label}: polish={p['stages']['polish']:.2f}s of "
+            f"total={p['total']:.2f}s; host SpMM applies {p['applies']}")
     path_e = phase(torch, "phase E", lambda: main_path(
         torch, "phase E (main path E, host restarted_ca_lanczos/K1+K2)", fa32, exact, "dia",
         ["dia_powers_fused", "dia_power_step"], totals, prefer="dia"))

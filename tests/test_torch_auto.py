@@ -34,6 +34,18 @@ from ca_lanczos_tpu_torch.ops.cuda_ilv import IlvDiaMatrix
 from ca_lanczos_tpu_torch.ops.formats import make_operator
 from ca_lanczos_tpu_torch.ops.pell import PellMatrix
 from ca_lanczos_tpu_torch.utils.interop import operator_from_numpy
+from tests.test_torch_pell import pin_encoder
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_encoder():
+    """JAX's PELL encoder on its native path, as the port's (``pin_encoder``):
+    the PELL route's planes and f32 sums are then the same in both
+    packages."""
+    with pytest.MonkeyPatch.context() as mp:
+        pin_encoder(mp, "native")
+        yield
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -326,6 +338,7 @@ def _entry_points():
         "dia_from_scipy": lambda: formats.dia_from_scipy(band),
         "PellMatrix.from_scipy": lambda: PellMatrix.from_scipy(band),
         "EllMatrix.from_scipy": lambda: spmv.EllMatrix.from_scipy(band),
+        "EllMatrix.from_dense": lambda: spmv.EllMatrix.from_dense(np.eye(4)),
         "DiaMatrix.from_dense": lambda: spmv.DiaMatrix.from_dense(np.eye(4)),
         "operator_from_numpy": lambda: operator_from_numpy(
             spmv.DenseMatrix(a=torch.eye(4))),
@@ -362,6 +375,7 @@ def test_port_never_imports_jax():
             "ca_lanczos_tpu_torch.utils.interop, ca_lanczos_tpu_torch.ops.formats, "
             "ca_lanczos_tpu_torch.ops.pell, ca_lanczos_tpu_torch.ops.cuda_pell, "
             "ca_lanczos_tpu_torch.ops._pell_native, ca_lanczos_tpu_torch.utils._native_build, "
+            "ca_lanczos_tpu_torch.ops._spmm_native, "
             "ca_lanczos_tpu_torch.ops.orth, ca_lanczos_tpu_torch.solvers, "
             "ca_lanczos_tpu_torch.solvers._block, ca_lanczos_tpu_torch.solvers.lanczos, "
             "ca_lanczos_tpu_torch.solvers.ca_lanczos, ca_lanczos_tpu_torch.solvers.restarted, "

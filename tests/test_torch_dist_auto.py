@@ -25,6 +25,17 @@ from ca_lanczos_tpu_torch.config import LanczosConfig as TCfg
 from ca_lanczos_tpu_torch.parallel import checks
 from ca_lanczos_tpu_torch.parallel.runtime import spawn
 from ca_lanczos_tpu_torch.utils.mmio import save_mtx
+from tests.test_torch_pell import pin_encoder
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_encoder():
+    """JAX's PELL encoder on its native path, as the port's (``pin_encoder``):
+    the PELL route's restart count is compared with JAX's."""
+    with pytest.MonkeyPatch.context() as mp:
+        pin_encoder(mp, "native")
+        yield
+
 
 P = 4
 

@@ -49,6 +49,18 @@ from ca_lanczos_tpu.utils.matrices import harmonic_oscillator, laplacian_2d
 from ca_lanczos_tpu_torch.config import LanczosConfig as TCfg
 from ca_lanczos_tpu_torch.parallel import checks
 from ca_lanczos_tpu_torch.parallel.runtime import spawn
+from tests.test_torch_pell import pin_encoder
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_encoder():
+    """JAX's PELL encoder on its native path, as the port's (``pin_encoder``):
+    restart counts are compared on f32 DistPell planes encoded by each
+    package."""
+    with pytest.MonkeyPatch.context() as mp:
+        pin_encoder(mp, "native")
+        yield
+
 
 P = 4
 

@@ -73,6 +73,37 @@ def test_load_mtx_matches_jax(tmp_path, kind):
     _same_coo(got, mmio._load_mtx_python(path))
 
 
+# Files the port refuses: the JAX package reads each as a real matrix (the
+# 2 x 2 Hermitian one as the entries (1,1) = 2 and (2,1) = 1, unmirrored).
+_REFUSED = {
+    "complex_hermitian": "%%MatrixMarket matrix coordinate complex hermitian\n2 2 2\n"
+                         "1 1 2 0\n2 1 1 2\n",
+    "complex_general": "%%MatrixMarket matrix coordinate complex general\n% c\n2 2 1\n"
+                       "1 2 1 -1\n",
+    "real_hermitian": "%%MatrixMarket matrix coordinate real hermitian\n2 2 2\n1 1 2\n2 1 1\n",
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_REFUSED))
+@pytest.mark.parametrize("native", [True, False])
+def test_load_mtx_refuses_complex_and_hermitian(tmp_path, monkeypatch, kind, native):
+    """A divergence from the JAX package: ``load_mtx`` raises ValueError
+    before either parser runs."""
+    path = str(tmp_path / f"{kind}.mtx")
+    with open(path, "w") as f:
+        f.write(_REFUSED[kind])
+    if not native:
+        monkeypatch.setattr(mmio, "_load_lib", lambda: None)
+    with pytest.raises(ValueError, match="complex and Hermitian"):
+        mmio.load_mtx(path)
+    with pytest.raises(ValueError, match="complex and Hermitian"):
+        mmio.load_operator(path, device="cpu")
+    if kind == "complex_hermitian":
+        ri, ci, vi, shape = jmmio.load_mtx(path)
+        assert (ri.tolist(), ci.tolist(), vi.tolist(), shape) == ([0, 1], [0, 0], [2.0, 1.0],
+                                                                  (2, 2))
+
+
 def test_roundtrip_and_native_matches_python(tmp_path):
     a = _random_general(tmp_path)
     path = str(tmp_path / "t.mtx")

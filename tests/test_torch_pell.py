@@ -10,6 +10,7 @@ sum the K slots in another order; products against scipy's f64 CSR are
 1e-12 relative on f64 planes."""
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import scipy.sparse as sp
 import torch
 
 import jax.numpy as jnp
+from ca_lanczos_tpu.ops import _pell_native as jpell_native
 from ca_lanczos_tpu.ops import formats as jformats
 from ca_lanczos_tpu.ops import pell as jpell
 from ca_lanczos_tpu_torch.ops import _pell_native, formats, pell
@@ -35,6 +37,35 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def pin_encoder(mp, path):
+    """Put the JAX package's PELL encoder and the port's on one path, so that
+    their planes can be compared bit for bit (the two encoders give valid
+    planes with different slot assignments).  "numpy": both loaders report
+    no library.  "native": JAX's load is retried until its library loads.
+    The JAX package builds it beside its source without a temporary file,
+    so a process that read the file while another test process was writing
+    it has cached the failure.  ``mp`` is a ``pytest.MonkeyPatch``."""
+    if path == "numpy":
+        mp.setattr(jpell_native, "_load", lambda: None)
+        mp.setattr(_pell_native, "_load", lambda: None)
+        return
+    for _ in range(120):
+        mp.setattr(jpell_native, "_TRIED", False)
+        mp.setattr(jpell_native, "_LIB", None)
+        if jpell_native.available():
+            break
+        time.sleep(0.5)
+    assert jpell_native.available() and _pell_native.available(), \
+        "both native PELL encoders build with g++ -fopenmp"
+
+
+@pytest.fixture(params=["native", "numpy"])
+def encoder(request, monkeypatch):
+    """Both packages on one encoder path (``pin_encoder``)."""
+    pin_encoder(monkeypatch, request.param)
+    return request.param
 
 
 def random_banded(n, bw, per_row, seed):
@@ -209,7 +240,7 @@ def _scattered_band(n=8192):
     return a
 
 
-def test_make_operator_routes_scattered_band_to_pell():
+def test_make_operator_routes_scattered_band_to_pell(encoder):
     a = _scattered_band()
     Aj, rj = jformats.make_operator(a)
     At, rt = formats.make_operator(a, device="cpu")
@@ -222,7 +253,7 @@ def test_make_operator_routes_scattered_band_to_pell():
                                rtol=1e-12, atol=1e-12 * np.abs(a @ x).max())
 
 
-def test_prefer_pell_and_negate():
+def test_prefer_pell_and_negate(encoder):
     a = _csr("banded")[0]
     for encoding in ("unit", "grouped"):
         Aj, rj = jformats.make_operator(a, prefer="pell", tile=512, encoding=encoding)
@@ -238,7 +269,7 @@ def test_prefer_pell_and_negate():
         _same(jformats.negate_operator(Aj), N)
 
 
-def test_save_load_roundtrip_and_jax_files(tmp_path):
+def test_save_load_roundtrip_and_jax_files(tmp_path, encoder):
     n = 2048
     band = sp.diags([-np.ones(n - 1), 2 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
     scat = _csr("banded")[0]

@@ -86,6 +86,22 @@ def test_ell_matvec_matches_jax(ncols):
     np.testing.assert_allclose(At.to_dense().numpy(), a.toarray(), rtol=RTOL)
 
 
+def test_ell_from_dense_and_exact_nnz_match_jax():
+    # a dense matrix with empty rows and explicit zeros among its stored
+    # entries: nnz counts the padded planes, exact_nnz the nonzeros
+    a = _sparse(300).toarray()
+    a[[7, 150]] = 0.0
+    Aj = jspmv.EllMatrix.from_dense(a)
+    At = tspmv.EllMatrix.from_dense(a, device="cpu")
+    np.testing.assert_array_equal(At.vals.numpy(), np.asarray(Aj.vals))
+    np.testing.assert_array_equal(At.cols.numpy(), np.asarray(Aj.cols))
+    np.testing.assert_array_equal(At.to_dense().numpy(), a)
+    assert At.nnz == Aj.nnz > At.exact_nnz() == Aj.exact_nnz() == np.count_nonzero(a)
+    zeroed = tspmv.EllMatrix(vals=At.vals.clone(), cols=At.cols)
+    zeroed.vals[0, 0] = 0.0
+    assert zeroed.exact_nnz() == At.exact_nnz() - 1
+
+
 def test_dense_matvec_matches_jax():
     a = np.random.default_rng(3).standard_normal((64, 64))
     Aj = jspmv.DenseMatrix(a=jnp.asarray(a))
