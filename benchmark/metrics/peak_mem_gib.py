@@ -1,0 +1,7 @@
+"""Peak of the caching allocator over the window
+(``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``
+at its start), in GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2**30
