@@ -25,7 +25,7 @@ IRL rungs are ``solvers.implicitly_restarted.impl_restarted_ca_lanczos``.
 from __future__ import annotations
 
 import dataclasses
-import time
+import itertools
 from typing import Dict, Optional
 
 import numpy as np
@@ -33,6 +33,7 @@ import torch
 
 from ca_lanczos_tpu_torch.config import LanczosConfig, Orth
 from ca_lanczos_tpu_torch.harness.matrix_info import recommend_solver
+from ca_lanczos_tpu_torch.utils.spans import span, stage
 
 
 @dataclasses.dataclass
@@ -59,6 +60,7 @@ def _n_locked(res) -> int:
 
 
 _M_LARGE = 96  # larger-basis rescue rung (see _ladder)
+_CALLS = itertools.count(1)  # numbers each solve_auto span of the process
 
 
 def _ladder(cfg: LanczosConfig, first: str, second: str,
@@ -93,7 +95,8 @@ def _escalate(run, attempts):
     best = best_label = None
     best_i = 0
     for i, (name, c, label, m) in enumerate(attempts):
-        res = run(name, c, m)
+        with span("solve.rung", label):
+            res = run(name, c, m)
         if res.converged:
             return res, label, i > 0
         if best is None or _n_locked(res) > _n_locked(best):
@@ -128,11 +131,6 @@ def _run(solver: str, A, r, max_lanczos: int, cfg: LanczosConfig,
         n_wanted=cfg.n_wanted, s=cfg.s, basis=cfg.basis, orth=cfg.orth,
         tol=cfg.tol, max_restarts=cfg.max_restarts,
     )
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def solve_auto(
@@ -178,82 +176,80 @@ def solve_auto(
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg or LanczosConfig()
     times: Dict[str, float] = {}
-    t0 = time.perf_counter()
     route = None
     raw = None  # the caller's raw matrix (the f64 source for the polish)
-    if not hasattr(A, "matvec"):
-        from ca_lanczos_tpu_torch.ops.formats import make_operator
+    with span("solve_auto", next(_CALLS)):
+        with stage("route", times, A.device if hasattr(A, "matvec") else device):
+            if not hasattr(A, "matvec"):
+                from ca_lanczos_tpu_torch.ops.formats import make_operator
 
-        raw = A
-        A, route = make_operator(A, device=device, **route_kwargs)
-        r = torch.as_tensor(route.apply(np.asarray(r)), dtype=A.dtype, device=A.device)
-    else:
-        r = torch.as_tensor(r, dtype=A.dtype, device=A.device)
-    dev = A.device
-    _sync(dev)
-    times["route"] = time.perf_counter() - t0
-    if polish > 0 or over_lock > 0:
-        from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+                raw = A
+                with span("route.build"):
+                    A, route = make_operator(A, device=device, **route_kwargs)
+                with span("route.copy"):
+                    r = torch.as_tensor(route.apply(np.asarray(r)), dtype=A.dtype,
+                                        device=A.device)
+            else:
+                r = torch.as_tensor(r, dtype=A.dtype, device=A.device)
+        dev = A.device
+        if polish > 0 or over_lock > 0:
+            from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
 
-        if raw is None and not isinstance(A, DiaMatrix):
-            raise ValueError(
-                "polish/over_lock need an f64 operator source: pass the "
-                "raw scipy matrix to solve_auto, or a DiaMatrix operator"
+            if raw is None and not isinstance(A, DiaMatrix):
+                raise ValueError(
+                    "polish/over_lock need an f64 operator source: pass the "
+                    "raw scipy matrix to solve_auto, or a DiaMatrix operator"
+                )
+        n_want0 = cfg.n_wanted
+        if over_lock:
+            cfg = dataclasses.replace(cfg, n_wanted=cfg.n_wanted + over_lock)
+        if which not in ("largest", "smallest"):
+            raise ValueError(f"which must be 'largest' or 'smallest', got {which!r}")
+        if which == "smallest":
+            from ca_lanczos_tpu_torch.ops.formats import negate_operator
+
+            A = negate_operator(A)
+        with stage("probe", times, dev):
+            rec = recommend_solver(A, n_wanted=cfg.n_wanted, probe_steps=probe_steps)
+        first = rec["driver"]
+        second = (
+            "impl_restarted_ca_lanczos" if first == "restarted_ca_lanczos"
+            else "restarted_ca_lanczos"
+        )
+        with stage("solve", times, dev):
+            res, solver, escalated = _escalate(
+                lambda name, c, m: _run(name, A, r, m or max_lanczos, c, engine,
+                                        cycles_per_call),
+                _ladder(cfg, first, second, max_lanczos),
             )
-    n_want0 = cfg.n_wanted
-    if over_lock:
-        cfg = dataclasses.replace(cfg, n_wanted=cfg.n_wanted + over_lock)
-    if which not in ("largest", "smallest"):
-        raise ValueError(f"which must be 'largest' or 'smallest', got {which!r}")
-    if which == "smallest":
-        from ca_lanczos_tpu_torch.ops.formats import negate_operator
-
-        A = negate_operator(A)
-    t0 = time.perf_counter()
-    rec = recommend_solver(A, n_wanted=cfg.n_wanted, probe_steps=probe_steps)
-    times["probe"] = time.perf_counter() - t0
-    first = rec["driver"]
-    second = (
-        "impl_restarted_ca_lanczos" if first == "restarted_ca_lanczos"
-        else "restarted_ca_lanczos"
-    )
-    t0 = time.perf_counter()
-    res, solver, escalated = _escalate(
-        lambda name, c, m: _run(name, A, r, m or max_lanczos, c, engine, cycles_per_call),
-        _ladder(cfg, first, second, max_lanczos),
-    )
-    _sync(dev)
-    times["solve"] = time.perf_counter() - t0
-    Q = res.Q_conv
-    if route is not None and route.perm is not None and Q is not None:
-        Q = route.restore(Q)
-    eigs = np.asarray(res.eigs)
-    presid = None
-    if polish > 0 and Q is not None and Q.shape[1] > 0:
-        # Polish in the ORIGINAL frame against the f64 source; the solve
-        # frame's negation (which="smallest") is re-applied so the RR
-        # keeps the wanted end.
-        t0 = time.perf_counter()
-        w, presid, Qp = _polish_block(raw, A, route, Q, which, polish, polish_depth)
-        _sync(dev)
-        times["polish"] = time.perf_counter() - t0
-        keep = min(n_want0, len(w))
-        eigs, presid = w[:keep], presid[:keep]
-        Q = Qp[:, :keep]
-        solver = solver + f"+polish{polish}"
-    if which == "smallest":
-        eigs = -eigs
-    return AutoResult(
-        eigs=eigs,
-        Q_conv=Q,
-        converged=bool(res.converged),
-        n_restarts=int(res.n_restarts),
-        solver=solver,
-        escalated=escalated,
-        route=route,
-        polish_resid=presid,
-        stage_seconds=times,
-    )
+        Q = res.Q_conv
+        if route is not None and route.perm is not None and Q is not None:
+            Q = route.restore(Q)
+        eigs = np.asarray(res.eigs)
+        presid = None
+        if polish > 0 and Q is not None and Q.shape[1] > 0:
+            # Polish in the ORIGINAL frame against the f64 source; the solve
+            # frame's negation (which="smallest") is re-applied so the RR
+            # keeps the wanted end.
+            with stage("polish", times, dev):
+                w, presid, Qp = _polish_block(raw, A, route, Q, which, polish, polish_depth)
+            keep = min(n_want0, len(w))
+            eigs, presid = w[:keep], presid[:keep]
+            Q = Qp[:, :keep]
+            solver = solver + f"+polish{polish}"
+        if which == "smallest":
+            eigs = -eigs
+        return AutoResult(
+            eigs=eigs,
+            Q_conv=Q,
+            converged=bool(res.converged),
+            n_restarts=int(res.n_restarts),
+            solver=solver,
+            escalated=escalated,
+            route=route,
+            polish_resid=presid,
+            stage_seconds=times,
+        )
 
 
 def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int, device="cuda"):
@@ -276,28 +272,33 @@ def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int, device=
     sgn = -1.0 if which == "smallest" else 1.0
     dev = A_solve.device if A_solve is not None else torch.device(device)
     if raw is not None and (route is None or route.perm is None):
-        coo = sp.coo_matrix(raw)
-        # Count distinct diagonals BEFORE any dia conversion (scattered
-        # sparsity would materialize O(n^2) planes).
-        offsets = np.unique(coo.col.astype(np.int64) - coo.row)
-        if len(offsets) <= 48:  # DIA-representable: device polish
-            d = sp.dia_matrix(sp.csr_matrix(raw).astype(np.float64))
-            A64 = DiaMatrix(
-                data=torch.as_tensor(sgn * _dia_rows(d), device=dev),
-                offsets=tuple(int(o) for o in d.offsets),
-            )
+        with span("polish.prep"):
+            coo = sp.coo_matrix(raw)
+            # Count distinct diagonals BEFORE any dia conversion (scattered
+            # sparsity would materialize O(n^2) planes).
+            offsets = np.unique(coo.col.astype(np.int64) - coo.row)
+            A64 = None
+            if len(offsets) <= 48:  # DIA-representable: device polish
+                d = sp.dia_matrix(sp.csr_matrix(raw).astype(np.float64))
+                A64 = DiaMatrix(
+                    data=torch.as_tensor(sgn * _dia_rows(d), device=dev),
+                    offsets=tuple(int(o) for o in d.offsets),
+                )
+        if A64 is not None:
             return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
     if raw is None and isinstance(A_solve, DiaMatrix):
         # Framework DIA input: polish against its planes upcast to f64
         # (representation-limited if they were stored f32).
-        A64 = DiaMatrix(data=A_solve.data.double(), offsets=A_solve.offsets)
+        with span("polish.prep"):
+            A64 = DiaMatrix(data=A_solve.data.double(), offsets=A_solve.offsets)
         return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
     # Host path: general sparsity (or permuted routes) against the raw f64
     # matrix through the row-parallel native SpMM (scipy's product, bit for
     # bit, on every column of the depth-4 panel).
     from ca_lanczos_tpu_torch.ops._spmm_native import CsrMatmul
 
-    mm = CsrMatmul(sp.csr_matrix(raw).astype(np.float64))
+    with span("polish.prep"):
+        mm = CsrMatmul(sp.csr_matrix(raw).astype(np.float64))
     w, resid, Qp = rayleigh_ritz_polish_host(
         (lambda Z: -mm(Z)) if sgn < 0 else mm, Q, iters=iters, depth=depth,
     )

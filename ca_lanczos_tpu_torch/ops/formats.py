@@ -328,6 +328,8 @@ def make_operator(
     """
     import scipy.sparse as sp
 
+    from ca_lanczos_tpu_torch.utils.spans import span  # utils imports ops
+
     device = torch.device(device)
     csr = sp.csr_matrix(a) if sp.issparse(a) else sp.csr_matrix(np.asarray(a))
     if csr.shape[0] != csr.shape[1]:
@@ -347,13 +349,14 @@ def make_operator(
                      if prefer == "auto" else "forced dense")
         return A, OperatorRoute("dense", None, notes, nnz)
     if prefer == "dia":
-        A = dia_from_scipy(csr, max_diags=max_diags, waste_cap=dia_waste_cap, device=device)
+        A = dia_from_scipy(csr, max_diags=max_diags, waste_cap=dia_waste_cap, device="cpu")
         if A is None:
             raise ValueError(
                 f"matrix does not qualify for DIA (max_diags={max_diags},"
                 f" waste_cap={dia_waste_cap})"
             )
-        return A, OperatorRoute("dia", None, ["forced dia"], nnz)
+        with span("route.copy"):
+            return A.to(device), OperatorRoute("dia", None, ["forced dia"], nnz)
     if prefer == "ilv":
         Ah = dia_from_scipy(csr, max_diags=max_diags, waste_cap=dia_waste_cap, device="cpu")
         if Ah is None:
@@ -397,7 +400,8 @@ def make_operator(
             total = perm_il if perm is None else np.concatenate(
                 [np.asarray(perm), np.arange(n, n_pad)])[perm_il]
             return Ail, OperatorRoute("ilv", total, notes, nnz, bw_b, bw_a, n_orig=n)
-        return A.to(device), OperatorRoute("dia", perm, notes, nnz, bw_b, bw_a)
+        with span("route.copy"):
+            return A.to(device), OperatorRoute("dia", perm, notes, nnz, bw_b, bw_a)
 
     A = route_csr(csr)
     if A is not None:

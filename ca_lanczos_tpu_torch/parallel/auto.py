@@ -22,7 +22,6 @@ polish_resid; rank 0 alone returns Q_conv (the others None).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,6 +34,7 @@ from ca_lanczos_tpu_torch.ops.formats import OperatorRoute, dia_from_scipy
 from ca_lanczos_tpu_torch.ops.spmv import EllMatrix
 from ca_lanczos_tpu_torch.parallel import comm
 from ca_lanczos_tpu_torch.parallel.mesh import Mesh
+from ca_lanczos_tpu_torch.utils.spans import stage
 
 
 def route_dist_operator(
@@ -132,7 +132,7 @@ def dist_solve_auto(
     block in f64 against the raw matrix.  SPMD (module docstring).
     ``stage_seconds`` holds route, probe, solve and polish (rank 0's
     clock, each stage ending with the device synchronised)."""
-    from ca_lanczos_tpu_torch.harness.auto import _escalate, _ladder, _polish_block, _sync
+    from ca_lanczos_tpu_torch.harness.auto import _escalate, _ladder, _polish_block
     from ca_lanczos_tpu_torch.harness.matrix_info import recommend_solver
     from ca_lanczos_tpu_torch.parallel.dist_irl import dist_impl_restarted_ca_lanczos
     from ca_lanczos_tpu_torch.parallel.driver import root_eval
@@ -142,15 +142,14 @@ def dist_solve_auto(
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg or LanczosConfig()
     times = {}
-    t0 = time.perf_counter()
     route = None
     raw = None
     dist_format = "auto"
-    if not hasattr(a, "matvec"):
-        raw = a
-        a, dist_format, route = route_dist_operator(a, mesh, cfg.s, **route_kwargs)
-        r = route.apply(np.asarray(r))
-    times["route"] = time.perf_counter() - t0
+    with stage("route", times, mesh.device):
+        if not hasattr(a, "matvec"):
+            raw = a
+            a, dist_format, route = route_dist_operator(a, mesh, cfg.s, **route_kwargs)
+            r = route.apply(np.asarray(r))
     if (polish > 0 or over_lock > 0) and raw is None:
         raise ValueError(
             "polish/over_lock need an f64 operator source: pass the raw "
@@ -174,16 +173,13 @@ def dist_solve_auto(
             max_restarts=c.max_restarts, dist_format=dist_format,
             mixed_precision=bool(c.orth_params.mixed_precision))
 
-    t0 = time.perf_counter()
-    first = root_eval(mesh, a, lambda Ad: recommend_solver(
-        Ad, n_wanted=cfg.n_wanted, probe_steps=probe_steps)["driver"])
-    times["probe"] = time.perf_counter() - t0
+    with stage("probe", times, mesh.device):
+        first = root_eval(mesh, a, lambda Ad: recommend_solver(
+            Ad, n_wanted=cfg.n_wanted, probe_steps=probe_steps)["driver"])
     second = ("impl_restarted_ca_lanczos" if first == "restarted_ca_lanczos"
               else "restarted_ca_lanczos")
-    t0 = time.perf_counter()
-    res, solver, escalated = _escalate(_run, _ladder(cfg, first, second, max_lanczos))
-    _sync(mesh.device)
-    times["solve"] = time.perf_counter() - t0
+    with stage("solve", times, mesh.device):
+        res, solver, escalated = _escalate(_run, _ladder(cfg, first, second, max_lanczos))
     solver = "dist_" + solver
     Q = res.Q_conv
     if route is not None and route.perm is not None and Q is not None:
@@ -191,15 +187,13 @@ def dist_solve_auto(
     eigs = np.asarray(res.eigs)
     presid = None
     if polish > 0 and Q is not None and Q.shape[1] > 0:
-        t0 = time.perf_counter()
-        out = None
-        if dist.get_rank() == 0:
-            w, pr, Qp = _polish_block(raw, None, route, Q, which, polish, polish_depth,
-                                      device=mesh.device)
-            out = (w, pr)
-        w, pr = comm.broadcast_object(out, mesh.device)
-        _sync(mesh.device)
-        times["polish"] = time.perf_counter() - t0
+        with stage("polish", times, mesh.device):
+            out = None
+            if dist.get_rank() == 0:
+                w, pr, Qp = _polish_block(raw, None, route, Q, which, polish, polish_depth,
+                                          device=mesh.device)
+                out = (w, pr)
+            w, pr = comm.broadcast_object(out, mesh.device)
         keep = min(n_want0, len(w))
         eigs, presid = w[:keep], pr[:keep]
         Q = Qp[:, :keep] if dist.get_rank() == 0 else None

@@ -35,6 +35,7 @@ from ca_lanczos_tpu_torch.config import Basis
 from ca_lanczos_tpu_torch.ops.qr import cholqr2, cholqr2_mp, gram_f64, sub_proj_f64
 from ca_lanczos_tpu_torch.ops.spmv import Operator, normest, spmv
 from ca_lanczos_tpu_torch.solvers.ca_lanczos import build_basis_matrix, monomial_basis_matrix
+from ca_lanczos_tpu_torch.utils.spans import span
 
 
 def _rdiv(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -131,13 +132,15 @@ def _make_cycle_body(A, Bk: torch.Tensor, tol: float, lam_bound: float,
         betas = torch.zeros(iters, dtype=ctype, device=dev)
         Q_cycle = torch.zeros((n, m), dtype=dtype, device=dev)
 
-        Vb = powers(q)
-        Qb, Rk = qr2(Vb)
-        # lock against Qconv (zero columns are no-ops), then re-normalize
-        for _ in range(2):
-            Qb, _ = proj(Qconv, Qb)
-        Qb, _ = qr2(Qb)
-        T1 = _rdiv(Rk @ Bk, Rk[:s, :s])
+        with span("solve.powers"):
+            Vb = powers(q)
+        with span("solve.orth"):
+            Qb, Rk = qr2(Vb)
+            # lock against Qconv (zero columns are no-ops), then re-normalize
+            for _ in range(2):
+                Qb, _ = proj(Qconv, Qb)
+            Qb, _ = qr2(Qb)
+            T1 = _rdiv(Rk @ Bk, Rk[:s, :s])
         Tmat[:s, :s] = T1[:s, :s]
         betas[0] = T1[s, s - 1]
         c0 = min(s + 1, m)
@@ -145,14 +148,16 @@ def _make_cycle_body(A, Bk: torch.Tensor, tol: float, lam_bound: float,
         Q_prev = Qb
 
         for k in range(2, iters + 1):
-            Vb = powers(Q_prev[:, -1].contiguous())
-            X = Vb[:, 1:]
-            Rkk = torch.zeros((s + 1, s), dtype=ctype, device=dev)
-            for _ in range(2):
-                X, Rp = proj(Q_prev, X)
-                Rkk = Rkk + Rp
-            X, _ = proj(Qconv, X)
-            Q_new, Rn = qr2(X)
+            with span("solve.powers"):
+                Vb = powers(Q_prev[:, -1].contiguous())
+            with span("solve.orth"):
+                X = Vb[:, 1:]
+                Rkk = torch.zeros((s + 1, s), dtype=ctype, device=dev)
+                for _ in range(2):
+                    X, Rp = proj(Q_prev, X)
+                    Rkk = Rkk + Rp
+                X, _ = proj(Qconv, X)
+                Q_new, Rn = qr2(X)
             Tk, b_k = _block_T(Rkk, Rn, Bk, betas[k - 2], s)
             lo = (k - 1) * s
             Tmat[lo : lo + s, lo : lo + s] = Tk
@@ -164,44 +169,45 @@ def _make_cycle_body(A, Bk: torch.Tensor, tol: float, lam_bound: float,
             Q_prev = torch.cat([Q_prev[:, -1:], Q_new], dim=1)
 
         # ---- Ritz extraction + verification ----------------------------
-        Tsym = (Tmat + Tmat.T) / 2
-        d, Vp = torch.linalg.eigh(Tsym)  # ascending
-        beta_m = betas[iters - 1]
-        rn = beta_m * torch.abs(Vp[m - 1, :])
+        with span("solve.ritz"):
+            Tsym = (Tmat + Tmat.T) / 2
+            d, Vp = torch.linalg.eigh(Tsym)  # ascending
+            beta_m = betas[iters - 1]
+            rn = beta_m * torch.abs(Vp[m - 1, :])
 
-        order = torch.argsort(d, stable=True).flip(0)[:n_wanted]
-        d_top = d[order]
-        rn_top = rn[order]
-        X_top = Q_cycle @ Vp[:, order].to(dtype)  # (n, n_wanted)
+            order = torch.argsort(d, stable=True).flip(0)[:n_wanted]
+            d_top = d[order]
+            rn_top = rn[order]
+            X_top = Q_cycle @ Vp[:, order].to(dtype)  # (n, n_wanted)
 
-        # true residuals (multivector SpMV) — catastrophic-lie guard; the
-        # norm reduction accumulates in ctype (f64 under mixed precision).
-        R_true = (spmv(A, X_top) - X_top * d_top.to(dtype)[None, :]).to(ctype)
-        true_abs = torch.sqrt(torch.sum(R_true * R_true, dim=0))
+            # true residuals (multivector SpMV) — catastrophic-lie guard; the
+            # norm reduction accumulates in ctype (f64 under mixed precision).
+            R_true = (spmv(A, X_top) - X_top * d_top.to(dtype)[None, :]).to(ctype)
+            true_abs = torch.sqrt(torch.sum(R_true * R_true, dim=0))
 
-        # Estimate-consistency gate, floored by the storage dtype's
-        # legitimate drift (see the TPU driver for the measured floors).
-        floor = 1e-3 if dtype == torch.float32 else 1e-4
-        gate = torch.clamp_min(1e3 * rn_top, floor * lam_bound)
-        passed = (rn_top < tol) & (true_abs < gate) & (torch.abs(d_top) <= 1.05 * lam_bound)
-        # Compact ANY passing candidates to the front (stable: descending
-        # order preserved within the passing group).
-        perm = torch.argsort((~passed).to(torch.int8), stable=True)
-        d_p = d_top[perm]
-        X_p = X_top[:, perm]
-        npass = passed.sum()
-        k_new = torch.clamp_max(npass, n_wanted - nconv)
-        lock = torch.arange(n_wanted, device=dev) < k_new
+            # Estimate-consistency gate, floored by the storage dtype's
+            # legitimate drift (see the TPU driver for the measured floors).
+            floor = 1e-3 if dtype == torch.float32 else 1e-4
+            gate = torch.clamp_min(1e3 * rn_top, floor * lam_bound)
+            passed = (rn_top < tol) & (true_abs < gate) & (torch.abs(d_top) <= 1.05 * lam_bound)
+            # Compact ANY passing candidates to the front (stable: descending
+            # order preserved within the passing group).
+            perm = torch.argsort((~passed).to(torch.int8), stable=True)
+            d_p = d_top[perm]
+            X_p = X_top[:, perm]
+            npass = passed.sum()
+            k_new = torch.clamp_max(npass, n_wanted - nconv)
+            lock = torch.arange(n_wanted, device=dev) < k_new
 
-        # merge candidates into Qconv / eigs at column offset nconv
-        sl = slice(nconv, nconv + n_wanted)
-        Qconv[:, sl] = torch.where(lock[None, :], X_p, Qconv[:, sl])
-        eigs_acc[sl] = torch.where(lock, d_p, eigs_acc[sl])
+            # merge candidates into Qconv / eigs at column offset nconv
+            sl = slice(nconv, nconv + n_wanted)
+            Qconv[:, sl] = torch.where(lock[None, :], X_p, Qconv[:, sl])
+            eigs_acc[sl] = torch.where(lock, d_p, eigs_acc[sl])
 
-        # restart vector: the largest candidate that did not lock
-        idx = torch.clamp_max(npass, n_wanted - 1).reshape(1)
-        q_next = X_p.index_select(1, idx)[:, 0]
-        q_next = q_next / torch.linalg.norm(q_next)
+            # restart vector: the largest candidate that did not lock
+            idx = torch.clamp_max(npass, n_wanted - 1).reshape(1)
+            q_next = X_p.index_select(1, idx)[:, 0]
+            q_next = q_next / torch.linalg.norm(q_next)
         return q_next, nconv + k_new
 
     return cycle_body
@@ -277,15 +283,16 @@ def fused_restarted_ca_lanczos(
         )
     # Carrier path: normest and the Newton bootstrap run on the
     # normal-layout companion (the spectrum is permutation-invariant).
-    norm_A = normest(A.dia if ilv else A)
-    r = torch.as_tensor(r, device=A.device).to(A.dtype)
-    q0 = r / torch.linalg.norm(r)
-    if basis == Basis.MONOMIAL:
-        Bk = monomial_basis_matrix(s)
-    elif ilv:
-        Bk = build_basis_matrix(A.dia, ilv_decode(q0), s, basis)
-    else:
-        Bk = build_basis_matrix(A, q0, s, basis)
+    with span("solve.bootstrap"):
+        norm_A = normest(A.dia if ilv else A)
+        r = torch.as_tensor(r, device=A.device).to(A.dtype)
+        q0 = r / torch.linalg.norm(r)
+        if basis == Basis.MONOMIAL:
+            Bk = monomial_basis_matrix(s)
+        elif ilv:
+            Bk = build_basis_matrix(A.dia, ilv_decode(q0), s, basis)
+        else:
+            Bk = build_basis_matrix(A, q0, s, basis)
     iters = max_lanczos // s
     if iters == 0:
         raise ValueError(f"max_lanczos={max_lanczos} < s={s}")
@@ -310,8 +317,10 @@ def fused_restarted_ca_lanczos(
     eigs_acc = torch.full((2 * n_wanted,), float("nan"), dtype=ctype, device=dev)
     nconv = cycles = 0
     while nconv < n_wanted and cycles < max_restarts:
-        q, nconv_t = cycle_body(q, Qconv, eigs_acc, nconv)
-        nconv = int(nconv_t)  # the one host read per cycle
+        with span("solve.cycle", cycles + 1):
+            q, nconv_t = cycle_body(q, Qconv, eigs_acc, nconv)
+            with span("solve.wait"):
+                nconv = int(nconv_t)  # the one host read per cycle
         cycles += 1
         if on_burst is not None and cycles_per_call and (
             cycles % cycles_per_call == 0 or nconv >= n_wanted or cycles >= max_restarts
@@ -321,7 +330,8 @@ def fused_restarted_ca_lanczos(
     Qc = Qconv[:, :n_wanted]
     eigs = eigs_acc[:n_wanted]
     if nconv >= n_wanted:
-        Qc, eigs = _make_refine(A, n_wanted, mixed_precision)(Qc, eigs)
+        with span("solve.refine"):
+            Qc, eigs = _make_refine(A, n_wanted, mixed_precision)(Qc, eigs)
     return FusedRestartedResult(
         eigs=eigs.cpu().numpy(),
         Q_conv=Qc,

@@ -42,6 +42,7 @@ from ca_lanczos_tpu_torch.ops.orth import normalize, project, project_and_normal
 from ca_lanczos_tpu_torch.ops.spmv import Operator, normest, spmv
 from ca_lanczos_tpu_torch.solvers._block import block_T, first_block_T
 from ca_lanczos_tpu_torch.solvers.ca_lanczos import build_basis_matrix
+from ca_lanczos_tpu_torch.utils.spans import span
 
 
 def qrstep(V: np.ndarray, H: np.ndarray, mu: complex, k1: int, k2: int):
@@ -220,7 +221,8 @@ def _ca_extend(
     while nvecs <= m - s:
         Vp = matrix_powers(A, V[nvecs], s, Bk, basis)
         if nvecs == 0:
-            Qb, Rk, _ = normalize(Vp)
+            with span("solve.orth"):
+                Qb, Rk, _ = normalize(Vp)
             V[: s + 1] = Qb.T
             Tk, b_new = first_block_T(Rk, Bk, s)
             T[: s + 1, :s] = Tk
@@ -232,7 +234,8 @@ def _ca_extend(
             # reorth=True: the restart compresses the basis onto the hardest
             # directions, so a single CGS pass is not enough — the explicit
             # driver reorthogonalizes everywhere for the same reason.
-            res = project_and_normalize(blocks, Vp[:, 1 : s + 1], reorth=True)
+            with span("solve.orth"):
+                res = project_and_normalize(blocks, Vp[:, 1 : s + 1], reorth=True)
             V[nvecs + 1 : nvecs + s + 1] = res.Q.T
             Tk, b_new, _ = block_T(res.R_blocks[-1], res.R, Bk, b_prev, s)
             T[nvecs : nvecs + s, nvecs : nvecs + s] = Tk
@@ -318,160 +321,162 @@ def impl_restarted_ca_lanczos(
     rnorm_locked: list = []
     ka = 0  # active (compressed, unlocked) vectors carried across restarts
     while n_restarts < max_restarts:
-        n_restarts += 1
-        j0 = nlock + ka if n_restarts > 1 else 0
-        # Extension length must tile into CA blocks; m_eff <= m.
-        m_eff = j0 + s * ((m - j0) // s) if inner == "ca" else m
-        if m_eff - j0 < (s if inner == "ca" else 1):
-            break  # window exhausted (all locked/purged)
-        if inner == "ca":
-            T, beta_m = _ca_extend(A, V, T, j0, m_eff, s, Bk, basis, orth)
-        elif inner == "arnoldi":
-            T, beta_m = _arnoldi_extend(A, V, T, j0, m_eff)
-        else:
-            T, beta_m = _std_extend(A, V, T, j0, m_eff, orth)
+        with span("solve.cycle", n_restarts + 1):
+            n_restarts += 1
+            j0 = nlock + ka if n_restarts > 1 else 0
+            # Extension length must tile into CA blocks; m_eff <= m.
+            m_eff = j0 + s * ((m - j0) // s) if inner == "ca" else m
+            if m_eff - j0 < (s if inner == "ca" else 1):
+                break  # window exhausted (all locked/purged)
+            if inner == "ca":
+                T, beta_m = _ca_extend(A, V, T, j0, m_eff, s, Bk, basis, orth)
+            elif inner == "arnoldi":
+                T, beta_m = _arnoldi_extend(A, V, T, j0, m_eff)
+            else:
+                T, beta_m = _std_extend(A, V, T, j0, m_eff, orth)
 
-        # Shift selection (:97, selectShifts :246-253) on the ACTIVE
-        # window [nlock, m_eff): unwanted = smallest (wanted 'largest').
-        ka_target = min(k - nlock, m_eff - nlock - 1)
-        Ta = T[nlock:m_eff, nlock:m_eff].copy()
-        theta = np.linalg.eigvalsh((Ta + Ta.T) / 2)  # ascending
-        p_eff = m_eff - nlock - ka_target
-        shifts = theta[:p_eff]
+            # Shift selection (:97, selectShifts :246-253) on the ACTIVE
+            # window [nlock, m_eff): unwanted = smallest (wanted 'largest').
+            ka_target = min(k - nlock, m_eff - nlock - 1)
+            Ta = T[nlock:m_eff, nlock:m_eff].copy()
+            theta = np.linalg.eigvalsh((Ta + Ta.T) / 2)  # ascending
+            p_eff = m_eff - nlock - ka_target
+            shifts = theta[:p_eff]
 
-        # Residual vector before restart.
-        r_vec = beta_m * V[m_eff]
+            # Residual vector before restart.
+            r_vec = beta_m * V[m_eff]
 
-        # Bulge-chase sweep on the unlocked window only — the reference's
-        # intended qrstep(Q, Tm, mu, nconv+1, m) hook (:99-108, TODO
-        # :116-125); the locked diagonal block is untouched.
-        Q = np.eye(m_eff)
-        H = T[:m_eff, :m_eff].copy()
-        for mu in shifts:
-            Q, H = qrstep(Q, H, mu, nlock, m_eff)
+            # Bulge-chase sweep on the unlocked window only — the reference's
+            # intended qrstep(Q, Tm, mu, nconv+1, m) hook (:99-108, TODO
+            # :116-125); the locked diagonal block is untouched.
+            Q = np.eye(m_eff)
+            H = T[:m_eff, :m_eff].copy()
+            for mu in shifts:
+                Q, H = qrstep(Q, H, mu, nlock, m_eff)
 
-        # Truncate the active window to ka_target vectors (:110-114):
-        # Vk_new = V[:m_eff] Q[:, nlock:kc], kept as the rows of W.
-        kc = nlock + ka_target
-        Vk_new = W[:ka_target]
-        torch.mm(small(Q[:, nlock:kc].T), V[:m_eff], out=Vk_new)
-        r_new = small(Q[:, kc] * H[kc, kc - 1]) @ V[:m_eff] + r_vec * float(Q[m_eff - 1, kc - 1])
-        beta_k = float(torch.linalg.norm(r_new))
-        Ha = (H[nlock:kc, nlock:kc] + H[nlock:kc, nlock:kc].T) / 2
+            # Truncate the active window to ka_target vectors (:110-114):
+            # Vk_new = V[:m_eff] Q[:, nlock:kc], kept as the rows of W.
+            kc = nlock + ka_target
+            Vk_new = W[:ka_target]
+            torch.mm(small(Q[:, nlock:kc].T), V[:m_eff], out=Vk_new)
+            r_new = (small(Q[:, kc] * H[kc, kc - 1]) @ V[:m_eff]
+                     + r_vec * float(Q[m_eff - 1, kc - 1]))
+            beta_k = float(torch.linalg.norm(r_new))
+            Ha = (H[nlock:kc, nlock:kc] + H[nlock:kc, nlock:kc].T) / 2
 
-        # Convergence / locking / purging on the compressed active window.
-        d, Y = np.linalg.eigh(Ha)  # ascending
-        rnorms = beta_k * np.abs(Y[-1, :])
-        conv = rnorms < tol
-        # Values outside the spectral interval are artifacts of basis
-        # breakdown whose residual ESTIMATE can be spuriously tiny (same
-        # guard as restarted._lock_converged).
-        conv &= np.abs(d) <= 1.05 * norm_A
-        n_want_left = n_wanted - nlock
-        order_desc = np.argsort(d)[::-1]
-        lock_idx = []
-        if lock:
-            # Lock converged pairs among the wanted (largest) — greedily
-            # from the top so locked pairs are the extreme ones.  Each
-            # candidate's TRUE residual is sanity-checked first (one SpMV;
-            # loose 1%-of-|A| threshold, like the restarted driver): past
-            # in-cycle breakdown T decouples and beta_k*|y(end)| lies.
-            for i in order_desc[:n_want_left]:
-                if not conv[i]:
-                    continue
-                if verify_locked:
-                    x = small(Y[:, i]) @ Vk_new
-                    true_abs = float(torch.linalg.norm(spmv(A, x) - float(d[i]) * x))
-                    if true_abs > 0.01 * norm_A:
+            # Convergence / locking / purging on the compressed active window.
+            d, Y = np.linalg.eigh(Ha)  # ascending
+            rnorms = beta_k * np.abs(Y[-1, :])
+            conv = rnorms < tol
+            # Values outside the spectral interval are artifacts of basis
+            # breakdown whose residual ESTIMATE can be spuriously tiny (same
+            # guard as restarted._lock_converged).
+            conv &= np.abs(d) <= 1.05 * norm_A
+            n_want_left = n_wanted - nlock
+            order_desc = np.argsort(d)[::-1]
+            lock_idx = []
+            if lock:
+                # Lock converged pairs among the wanted (largest) — greedily
+                # from the top so locked pairs are the extreme ones.  Each
+                # candidate's TRUE residual is sanity-checked first (one SpMV;
+                # loose 1%-of-|A| threshold, like the restarted driver): past
+                # in-cycle breakdown T decouples and beta_k*|y(end)| lies.
+                for i in order_desc[:n_want_left]:
+                    if not conv[i]:
                         continue
-                lock_idx.append(i)
-            # Purge converged pairs among the unwanted: an exact shift at
-            # a converged Ritz value is numerically singular, so drop the
-            # direction from the basis entirely.
-            purge_idx = [i for i in order_desc[n_want_left:] if conv[i]]
-        else:
-            purge_idx = []
-            if int(np.sum(conv[order_desc[:n_want_left]])) >= n_want_left:
-                converged = True
-        keep = [i for i in range(len(d)) if i not in lock_idx and i not in purge_idx]
+                    if verify_locked:
+                        x = small(Y[:, i]) @ Vk_new
+                        true_abs = float(torch.linalg.norm(spmv(A, x) - float(d[i]) * x))
+                        if true_abs > 0.01 * norm_A:
+                            continue
+                    lock_idx.append(i)
+                # Purge converged pairs among the unwanted: an exact shift at
+                # a converged Ritz value is numerically singular, so drop the
+                # direction from the basis entirely.
+                purge_idx = [i for i in order_desc[n_want_left:] if conv[i]]
+            else:
+                purge_idx = []
+                if int(np.sum(conv[order_desc[:n_want_left]])) >= n_want_left:
+                    converged = True
+            keep = [i for i in range(len(d)) if i not in lock_idx and i not in purge_idx]
 
-        if lock and (lock_idx or purge_idx):
-            # Transform to eigencoordinates: locked block first, then the
-            # re-tridiagonalized remainder (Hessred role, :535-556).
-            d_locked.extend(d[lock_idx])
-            rnorm_locked.extend(rnorms[lock_idx])
-            n_purged += len(purge_idx)
-            ka = len(keep)
-            C_act = None  # coefficients of the active vectors in Vk_new
-            beta_eff = 0.0
-            Ttri = np.zeros((0, 0))
-            if ka > 0:
-                d_rest = d[keep]
-                w = Y[-1, keep]
-                wn = np.linalg.norm(w)
-                if wn > 0:
-                    U, Ttri = _retridiagonalize(d_rest, w)
-                    C_act = Y[:, keep] @ U
-                    beta_eff = beta_k * wn
-                else:  # residual fully in locked/purged directions
-                    Ttri = np.diag(d_rest)
-                    C_act = Y[:, keep]
-            nlock_new = nlock + len(lock_idx)
-            T = np.zeros((m + 1, m))
-            for i, dv in enumerate(d_locked):
-                T[i, i] = dv
-            T[nlock_new : nlock_new + ka, nlock_new : nlock_new + ka] = Ttri
-            if lock_idx:
-                V[nlock:nlock_new] = small(Y[:, lock_idx].T) @ Vk_new
-            nlock = nlock_new
-            if ka > 0:
-                V[nlock : nlock + ka] = small(C_act.T) @ Vk_new
-                T[nlock + ka, nlock + ka - 1] = beta_eff
-                T[nlock + ka - 1, nlock + ka] = beta_eff
-            V[nlock + ka] = r_new / beta_k
-            if nlock >= n_wanted:
-                converged = True
-                break
-        else:
-            # No structural change: keep the chased tridiagonal window
-            # as-is (identical to the lock=False legacy restart).
-            ka = ka_target
-            T = np.zeros((m + 1, m))
-            for i, dv in enumerate(d_locked):
-                T[i, i] = dv
-            T[kc, kc - 1] = beta_k
-            T[kc - 1, kc] = beta_k
-            V[nlock:kc] = Vk_new
-            V[kc] = r_new / beta_k
-            # Ha here is the eigh-symmetrized chased block, which is
-            # tridiagonal to roundoff; restore exact tridiagonality.
-            T[nlock:kc, nlock:kc] = (
-                np.diag(np.diag(Ha))
-                + np.diag(np.diag(Ha, 1), 1)
-                + np.diag(np.diag(Ha, -1), -1)
-            )
-            if converged:
-                break
+            if lock and (lock_idx or purge_idx):
+                # Transform to eigencoordinates: locked block first, then the
+                # re-tridiagonalized remainder (Hessred role, :535-556).
+                d_locked.extend(d[lock_idx])
+                rnorm_locked.extend(rnorms[lock_idx])
+                n_purged += len(purge_idx)
+                ka = len(keep)
+                C_act = None  # coefficients of the active vectors in Vk_new
+                beta_eff = 0.0
+                Ttri = np.zeros((0, 0))
+                if ka > 0:
+                    d_rest = d[keep]
+                    w = Y[-1, keep]
+                    wn = np.linalg.norm(w)
+                    if wn > 0:
+                        U, Ttri = _retridiagonalize(d_rest, w)
+                        C_act = Y[:, keep] @ U
+                        beta_eff = beta_k * wn
+                    else:  # residual fully in locked/purged directions
+                        Ttri = np.diag(d_rest)
+                        C_act = Y[:, keep]
+                nlock_new = nlock + len(lock_idx)
+                T = np.zeros((m + 1, m))
+                for i, dv in enumerate(d_locked):
+                    T[i, i] = dv
+                T[nlock_new : nlock_new + ka, nlock_new : nlock_new + ka] = Ttri
+                if lock_idx:
+                    V[nlock:nlock_new] = small(Y[:, lock_idx].T) @ Vk_new
+                nlock = nlock_new
+                if ka > 0:
+                    V[nlock : nlock + ka] = small(C_act.T) @ Vk_new
+                    T[nlock + ka, nlock + ka - 1] = beta_eff
+                    T[nlock + ka - 1, nlock + ka] = beta_eff
+                V[nlock + ka] = r_new / beta_k
+                if nlock >= n_wanted:
+                    converged = True
+                    break
+            else:
+                # No structural change: keep the chased tridiagonal window
+                # as-is (identical to the lock=False legacy restart).
+                ka = ka_target
+                T = np.zeros((m + 1, m))
+                for i, dv in enumerate(d_locked):
+                    T[i, i] = dv
+                T[kc, kc - 1] = beta_k
+                T[kc - 1, kc] = beta_k
+                V[nlock:kc] = Vk_new
+                V[kc] = r_new / beta_k
+                # Ha here is the eigh-symmetrized chased block, which is
+                # tridiagonal to roundoff; restore exact tridiagonality.
+                T[nlock:kc, nlock:kc] = (
+                    np.diag(np.diag(Ha))
+                    + np.diag(np.diag(Ha, 1), 1)
+                    + np.diag(np.diag(Ha, -1), -1)
+                )
+                if converged:
+                    break
 
-        # Refresh the Newton shifts from the ACTIVE window's Ritz values.
-        # The bootstrap shifts sit at the extreme eigenvalues — exactly the
-        # pairs locking deflates — so (A - lambda I) nearly annihilates the
-        # deflated start vector's dominant components and the powers block
-        # is born badly conditioned.  Tracking the unlocked spectrum keeps
-        # the s-step basis conditioned; Bk only enters through the NEXT
-        # extension's matrix_powers + block_T pair, so a per-restart
-        # refresh is exact.  (The reference fixes Bk once at :60/:231-243,
-        # but never executed its CA inner — the commented calls at :87,:92
-        # — so it never faced locking + Newton together.)
-        if basis == Basis.NEWTON and inner == "ca":
-            d_act = d[keep] if keep else d
-            if len(d_act) >= s:
-                try:
-                    Bk = newton_basis_matrix(
-                        leja(np.asarray(d_act), LejaVariant.REAL), s, modified=True
-                    )
-                except ValueError:
-                    pass  # degenerate active spectrum: keep the old shifts
+            # Refresh the Newton shifts from the ACTIVE window's Ritz values.
+            # The bootstrap shifts sit at the extreme eigenvalues — exactly the
+            # pairs locking deflates — so (A - lambda I) nearly annihilates the
+            # deflated start vector's dominant components and the powers block
+            # is born badly conditioned.  Tracking the unlocked spectrum keeps
+            # the s-step basis conditioned; Bk only enters through the NEXT
+            # extension's matrix_powers + block_T pair, so a per-restart
+            # refresh is exact.  (The reference fixes Bk once at :60/:231-243,
+            # but never executed its CA inner — the commented calls at :87,:92
+            # — so it never faced locking + Newton together.)
+            if basis == Basis.NEWTON and inner == "ca":
+                d_act = d[keep] if keep else d
+                if len(d_act) >= s:
+                    try:
+                        Bk = newton_basis_matrix(
+                            leja(np.asarray(d_act), LejaVariant.REAL), s, modified=True
+                        )
+                    except ValueError:
+                        pass  # degenerate active spectrum: keep the old shifts
 
     # Final Ritz extraction: locked pairs + best remaining active pairs.
     kc = nlock + ka

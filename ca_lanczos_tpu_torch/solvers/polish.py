@@ -33,6 +33,7 @@ import torch
 
 from ca_lanczos_tpu_torch.ops.qr import _chol_safe
 from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+from ca_lanczos_tpu_torch.utils.spans import span
 
 
 def _cholqr2_f32(Z: torch.Tensor) -> torch.Tensor:
@@ -59,15 +60,17 @@ def _rq64(A64, Q: torch.Tensor):
 def _polish_pass(A64, A32, X: torch.Tensor, k: int, depth: int, final: bool):
     """One block-Krylov RR pass on the f32 (n, k) block X; returns
     (w (k,) f64 Rayleigh quotients, resid (k,) f64, Q (n, k) f32)."""
-    Q = _cholqr2_f32(X.float())
+    with span("polish.orth"):
+        Q = _cholqr2_f32(X.float())
     _, _, B = _rq64(A64, Q)
 
     stages = [Q]
     for d in range(depth):
-        for _ in range(2):  # CGS2 against previous stages (f32)
-            for Sx in stages:
-                B = B - Sx @ (Sx.T @ B)
-        B = _cholqr2_f32(_unit_cols(B))
+        with span("polish.orth"):
+            for _ in range(2):  # CGS2 against previous stages (f32)
+                for Sx in stages:
+                    B = B - Sx @ (Sx.T @ B)
+            B = _cholqr2_f32(_unit_cols(B))
         stages.append(B)
         if d < depth - 1:
             # Krylov expansion stages ride the f32 twin: only the FIRST
@@ -75,20 +78,23 @@ def _polish_pass(A64, A32, X: torch.Tensor, k: int, depth: int, final: bool):
             B = _unit_cols(A32.matvec(B))
 
     Z = torch.cat(stages, dim=1)  # (n, m k)
-    if final:
-        # f64 generalized Gram pair: the f32 Gram's ~sqrt(n)*eps_f32 error
-        # would re-inject subspace mixing at every rotation.
-        Z64 = Z.double()
-        G = (Z64.T @ A64.matvec(Z64)).cpu().numpy()
-        M = (Z64.T @ Z64).cpu().numpy()
-        wa, Ua = sla.eigh((G + G.T) / 2, (M + M.T) / 2)
-    else:
-        G = (Z.T @ A32.matvec(Z)).double().cpu().numpy()
-        wa, Ua = np.linalg.eigh((G + G.T) / 2)
+    with span("polish.rr"):
+        if final:
+            # f64 generalized Gram pair: the f32 Gram's ~sqrt(n)*eps_f32 error
+            # would re-inject subspace mixing at every rotation.
+            Z64 = Z.double()
+            G = (Z64.T @ A64.matvec(Z64)).cpu().numpy()
+            M = (Z64.T @ Z64).cpu().numpy()
+            wa, Ua = sla.eigh((G + G.T) / 2, (M + M.T) / 2)
+        else:
+            G = (Z.T @ A32.matvec(Z)).double().cpu().numpy()
+            wa, Ua = np.linalg.eigh((G + G.T) / 2)
     order = np.argsort(wa)[::-1][:k]
     Uk = torch.as_tensor(np.ascontiguousarray(Ua[:, order]), dtype=torch.float32,
                          device=Z.device)
-    Q = _cholqr2_f32(Z @ Uk)
+    ZU = Z @ Uk
+    with span("polish.orth"):
+        Q = _cholqr2_f32(ZU)
     w, resid, _ = _rq64(A64, Q)
     return w.cpu().numpy(), resid.cpu().numpy(), Q
 
@@ -111,7 +117,8 @@ def rayleigh_ritz_polish(A64, X, iters: int = 3, depth: int = 4
     w = resid = None
     total = max(int(iters), 1)
     for it in range(total):
-        w, resid, Q = _polish_pass(A64, A32, Q, k, int(depth), final=(it == total - 1))
+        with span("polish.pass", it):
+            w, resid, Q = _polish_pass(A64, A32, Q, k, int(depth), final=(it == total - 1))
     return w, resid, Q
 
 
@@ -150,25 +157,26 @@ def rayleigh_ritz_polish_host(matvec, X, iters: int = 3, depth: int = 4
     AQ = apply(Q)
     w = torch.sum(Q * AQ, dim=0)
 
-    for _ in range(max(int(iters), 1)):
-        stages = [Q]
-        B = unit(AQ - Q * w[None, :])
-        for d in range(depth):
-            for _ in range(2):
-                for Sx in stages:
-                    B = torch.addmm(B, Sx, Sx.T @ B, alpha=-1.0)  # B - Sx (Sx^T B)
-            B = orth(unit(B))
-            stages.append(B)
-            if d < depth - 1:
-                B = unit(apply(B))
-        Z = torch.cat(stages, dim=1)  # (n, mk), orthonormal-ish
-        AZ = apply(Z)
-        G = (Z.T @ AZ).numpy()
-        M = (Z.T @ Z).numpy()
-        wa, Ua = sla.eigh((G + G.T) / 2, (M + M.T) / 2)
-        order = np.argsort(wa)[::-1][:k]
-        Q = orth(Z @ torch.from_numpy(np.ascontiguousarray(Ua[:, order])))
-        AQ = apply(Q)
-        w = torch.sum(Q * AQ, dim=0)
+    for it in range(max(int(iters), 1)):
+        with span("polish.pass", it):
+            stages = [Q]
+            B = unit(AQ - Q * w[None, :])
+            for d in range(depth):
+                for _ in range(2):
+                    for Sx in stages:
+                        B = torch.addmm(B, Sx, Sx.T @ B, alpha=-1.0)  # B - Sx (Sx^T B)
+                B = orth(unit(B))
+                stages.append(B)
+                if d < depth - 1:
+                    B = unit(apply(B))
+            Z = torch.cat(stages, dim=1)  # (n, mk), orthonormal-ish
+            AZ = apply(Z)
+            G = (Z.T @ AZ).numpy()
+            M = (Z.T @ Z).numpy()
+            wa, Ua = sla.eigh((G + G.T) / 2, (M + M.T) / 2)
+            order = np.argsort(wa)[::-1][:k]
+            Q = orth(Z @ torch.from_numpy(np.ascontiguousarray(Ua[:, order])))
+            AQ = apply(Q)
+            w = torch.sum(Q * AQ, dim=0)
     resid = torch.linalg.norm(AQ - Q * w[None, :], dim=0)
     return w.numpy(), resid.numpy(), Q.numpy()

@@ -47,6 +47,7 @@ from ca_lanczos_tpu_torch.solvers._block import block_T, extend_T, first_block_T
 from ca_lanczos_tpu_torch.solvers.ca_lanczos import build_basis_matrix
 from ca_lanczos_tpu_torch.solvers.lanczos import _tridiag
 from ca_lanczos_tpu_torch.utils.diagnostics import OmegaRecurrence, orth_error_fro
+from ca_lanczos_tpu_torch.utils.spans import span
 
 _EPS = float(np.finfo(np.float64).eps)
 _SQRT_EPS = float(np.sqrt(_EPS))
@@ -440,9 +441,10 @@ def _ca_inner(
             # recurrence consumes these R factors, and randomized columns
             # no longer satisfy V = Q R (spurious locks are instead
             # filtered by the true-residual check at lock time).
-            Qb, Rk, _ = normalize(V, params=params)
-            if conv_blocks:
-                Qb = project_and_normalize(conv_blocks, Qb, reorth=True, params=params).Q
+            with span("solve.orth"):
+                Qb, Rk, _ = normalize(V, params=params)
+                if conv_blocks:
+                    Qb = project_and_normalize(conv_blocks, Qb, reorth=True, params=params).Q
             Q[: s + 1] = Qb.T
             T, b[0] = first_block_T(Rk, Bk, s)
         else:
@@ -451,17 +453,21 @@ def _ca_inner(
                 # R factors from the previous-block pass; the full history +
                 # Q_conv pass is orthogonalization only
                 # (restarted_ca_lanczos.m:328-333).
-                res = project_and_normalize([prev], V[:, 1 : s + 1], reorth=True, params=params)
-                hist = conv_blocks + ([Q[: (k - 2) * s].T] if k > 2 else [])
-                Qb = res.Q
-                if hist:
-                    Qb = project_and_normalize(hist, Qb, reorth=True, params=params).Q
+                with span("solve.orth"):
+                    res = project_and_normalize([prev], V[:, 1 : s + 1], reorth=True,
+                                                params=params)
+                    hist = conv_blocks + ([Q[: (k - 2) * s].T] if k > 2 else [])
+                    Qb = res.Q
+                    if hist:
+                        Qb = project_and_normalize(hist, Qb, reorth=True, params=params).Q
                 Q[(k - 1) * s + 1 : k * s + 1] = Qb.T
             else:
                 blocks = [prev] + conv_blocks
                 if orth == Orth.SELECTIVE and nritz > 0:
                     blocks = blocks + [QR]
-                res = project_and_normalize(blocks, V[:, 1 : s + 1], reorth=True, params=params)
+                with span("solve.orth"):
+                    res = project_and_normalize(blocks, V[:, 1 : s + 1], reorth=True,
+                                                params=params)
                 Q[(k - 1) * s + 1 : k * s + 1] = res.Q[:, :s].T
 
             Tk, b[k - 1], _ = block_T(res.R_blocks[0], res.R, Bk, b[k - 2], s)
@@ -556,72 +562,73 @@ def restarted_ca_lanczos(
         raise ValueError(f"max_lanczos={max_lanczos} < s={s}")
 
     while restart and n_restarts < config.max_restarts:
-        n_restarts += 1
-        Q_new, T_ext = _ca_inner(A, Qc, q, Bk, iters, s, basis, orth, norm_A, params)
+        with span("solve.cycle", n_restarts + 1):
+            n_restarts += 1
+            Q_new, T_ext = _ca_inner(A, Qc, q, Bk, iters, s, basis, orth, norm_A, params)
 
-        m = s * iters
-        d, Vp = np.linalg.eigh(T_ext[:m, :m])
-        beta_m = T_ext[m, m - 1]
-        ritz_norms = beta_m * np.abs(Vp[m - 1, :])  # restarted_ca_lanczos.m:110-116
+            m = s * iters
+            d, Vp = np.linalg.eigh(T_ext[:m, :m])
+            beta_m = T_ext[m, m - 1]
+            ritz_norms = beta_m * np.abs(Vp[m - 1, :])  # restarted_ca_lanczos.m:110-116
 
-        k, d, Vp, ritz_norms = _lock_converged(
-            d, Vp, ritz_norms, tol, lam_bound=1.05 * norm_A
-        )
+            k, d, Vp, ritz_norms = _lock_converged(
+                d, Vp, ritz_norms, tol, lam_bound=1.05 * norm_A
+            )
 
-        orth_err.append(orth_error_fro(_conv_blocks(Qc) + [Q_new.T]))
+            orth_err.append(orth_error_fro(_conv_blocks(Qc) + [Q_new.T]))
 
-        # Sanity-check each candidate's TRUE residual before locking: past
-        # in-cycle convergence the recurrence breaks down, T decouples, and
-        # the beta*|y(end)| estimate goes spuriously tiny for garbage pairs
-        # (_verify_gate).  One SpMV per candidate.
-        row = np.full(config.n_wanted, np.nan)
-        k_est = k  # estimate-converged prefix (locked OR verify-rejected)
-        verified = 0
-        for i in range(k):
-            x = _ritz(Q_new, _col(Vp, i, Q_new))
-            true_abs = _true_residual(A, x, float(d[i]))
-            if config.verify_locked and true_abs > _verify_gate(
-                    ritz_norms[i], norm_A,
-                    floor=_verify_floor(dtype, config.tol)):
-                continue  # estimate lied; leave the pair unlocked
-            conv_eigs.append(float(d[i]))
-            conv_rnorms.append(float(ritz_norms[i]))
-            if nconv + verified < config.n_wanted:
-                row[nconv + verified] = _relative_residual(A, x, float(d[i]))
-            Qc = _append_row(Qc, x)
-            verified += 1
-        # Non-converged leaders fill the rest of the diagnostics row
-        # (restarted_ca_lanczos.m:154-159).
-        nc_order = np.argsort(d[k:])[::-1]
-        for j, i in enumerate(nc_order[: max(0, config.n_wanted - nconv - verified)]):
-            x = _ritz(Q_new, _col(Vp, k + i, Q_new))
-            row[nconv + verified + j] = _relative_residual(A, x, float(d[k + i]))
-        rnorm_rows.append(row)
+            # Sanity-check each candidate's TRUE residual before locking: past
+            # in-cycle convergence the recurrence breaks down, T decouples, and
+            # the beta*|y(end)| estimate goes spuriously tiny for garbage pairs
+            # (_verify_gate).  One SpMV per candidate.
+            row = np.full(config.n_wanted, np.nan)
+            k_est = k  # estimate-converged prefix (locked OR verify-rejected)
+            verified = 0
+            for i in range(k):
+                x = _ritz(Q_new, _col(Vp, i, Q_new))
+                true_abs = _true_residual(A, x, float(d[i]))
+                if config.verify_locked and true_abs > _verify_gate(
+                        ritz_norms[i], norm_A,
+                        floor=_verify_floor(dtype, config.tol)):
+                    continue  # estimate lied; leave the pair unlocked
+                conv_eigs.append(float(d[i]))
+                conv_rnorms.append(float(ritz_norms[i]))
+                if nconv + verified < config.n_wanted:
+                    row[nconv + verified] = _relative_residual(A, x, float(d[i]))
+                Qc = _append_row(Qc, x)
+                verified += 1
+            # Non-converged leaders fill the rest of the diagnostics row
+            # (restarted_ca_lanczos.m:154-159).
+            nc_order = np.argsort(d[k:])[::-1]
+            for j, i in enumerate(nc_order[: max(0, config.n_wanted - nconv - verified)]):
+                x = _ritz(Q_new, _col(Vp, k + i, Q_new))
+                row[nconv + verified + j] = _relative_residual(A, x, float(d[k + i]))
+            rnorm_rows.append(row)
 
-        k = verified
-        nconv += k
-        restart = _wanted_converged(conv_eigs, d[k_est:],
-                                    config.restart_strategy) < config.n_wanted
-        if restart:
-            # see restarted_lanczos: skip the whole [verified, k_est)
-            # prefix of locked/rejected candidates
-            q = _generate_start_vector(d, Vp, Q_new, ritz_norms, k_est,
-                                       config.restart_strategy, rng,
-                                       lam_bound=1.05 * norm_A)
+            k = verified
+            nconv += k
+            restart = _wanted_converged(conv_eigs, d[k_est:],
+                                        config.restart_strategy) < config.n_wanted
+            if restart:
+                # see restarted_lanczos: skip the whole [verified, k_est)
+                # prefix of locked/rejected candidates
+                q = _generate_start_vector(d, Vp, Q_new, ritz_norms, k_est,
+                                           config.restart_strategy, rng,
+                                           lam_bound=1.05 * norm_A)
 
-        if checkpoint_path is not None:
-            RestartCheckpoint(
-                n_restarts=n_restarts,
-                nconv=nconv,
-                conv_eigs=conv_eigs,
-                conv_rnorms=conv_rnorms,
-                orth_err=orth_err,
-                rnorm_rows=rnorm_rows,
-                Q_conv=Qc.T.cpu().numpy() if Qc is not None else None,
-                q=q.cpu().numpy(),
-                Bk=np.asarray(Bk),
-                rng_state=rng.bit_generator.state,
-            ).save(checkpoint_path)
+            if checkpoint_path is not None:
+                RestartCheckpoint(
+                    n_restarts=n_restarts,
+                    nconv=nconv,
+                    conv_eigs=conv_eigs,
+                    conv_rnorms=conv_rnorms,
+                    orth_err=orth_err,
+                    rnorm_rows=rnorm_rows,
+                    Q_conv=Qc.T.cpu().numpy() if Qc is not None else None,
+                    q=q.cpu().numpy(),
+                    Bk=np.asarray(Bk),
+                    rng_state=rng.bit_generator.state,
+                ).save(checkpoint_path)
 
     return _finalize(
         conv_eigs, conv_rnorms, Qc, n_restarts, rnorm_rows, orth_err, config.n_wanted,
