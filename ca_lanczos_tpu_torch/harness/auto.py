@@ -61,6 +61,9 @@ def _n_locked(res) -> int:
 
 _M_LARGE = 96  # larger-basis rescue rung (see _ladder)
 _CALLS = itertools.count(1)  # numbers each solve_auto span of the process
+_POLISH_MAX_DIAGS = 48  # most diagonals the device polish takes
+# one per _polish_block call, by the branch that built its f64 operator
+POLISH_PREP = {"device_upcast": 0, "host_dia": 0, "host_csr": 0}
 
 
 def _ladder(cfg: LanczosConfig, first: str, second: str,
@@ -164,10 +167,12 @@ def solve_auto(
 
     ``polish`` > 0 runs that many f64 block-Krylov Rayleigh-Ritz passes on
     the converged block (solvers.polish): on the operator's device when
-    the raw f64 input is DIA-representable and unpermuted, on the host
-    (the native OpenMP CSR SpMM in f64) otherwise.  ``over_lock`` locks
-    that many EXTRA pairs during the solve so the polish can discard
-    sloppy directions and still return ``cfg.n_wanted`` accurate pairs.
+    the raw input is DIA-representable and unpermuted (against the solve
+    planes upcast on the device when they hold the raw values exactly),
+    on the host (the native OpenMP CSR SpMM in f64) otherwise
+    (``_polish_block``).  ``over_lock`` locks that many EXTRA pairs during
+    the solve so the polish can discard sloppy directions and still
+    return ``cfg.n_wanted`` accurate pairs.
 
     TF32 is switched off for matmuls and cuDNN (process-wide PyTorch
     flags): the f32 Gram products must not round to TF32.
@@ -254,66 +259,76 @@ def solve_auto(
 
 def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int, device="cuda"):
     """f64 Rayleigh-Ritz polish of a converged block in the caller's
-    frame: device path for DIA-representable f64 sources, host path (the
-    native CSR SpMM in f64, ``ops._spmm_native``) otherwise.  The device
-    is the solve operator's, or ``device`` when there is none (the
-    distributed solve polishes the gathered block against the raw matrix
-    alone).  Returns (w
-    desc-in-solve-frame, resid, Q (n, k) tensor) — w/resid aligned with
-    Q's columns."""
+    frame, against the f64 operator of the first branch that applies
+    (counted in ``POLISH_PREP``; the ``polish.prep`` span's args name it):
+
+    * ``device_upcast``: the solve operator's own DIA planes (already
+      negated for ``which="smallest"``) upcast on their device, when
+      they hold the raw matrix's values exactly (``_planes_hold_raw``),
+      or when there is no raw matrix (representation-limited if the
+      planes were stored f32);
+    * ``host_dia``: f64 DIA planes of an unpermuted raw matrix with at
+      most ``_POLISH_MAX_DIAGS`` diagonals, built on the host in O(nnz)
+      and copied to the device;
+    * ``host_csr``: the native CSR SpMM in f64 on the host
+      (``ops._spmm_native``): general sparsity, permuted routes.
+
+    The device is the solve operator's, or ``device`` when there is none
+    (the distributed solve polishes the gathered block against the raw
+    matrix alone).  Returns (w desc-in-solve-frame, resid, Q (n, k)
+    tensor) — w/resid aligned with Q's columns."""
     import scipy.sparse as sp
 
+    from ca_lanczos_tpu_torch.ops.formats import dia_from_scipy
     from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
     from ca_lanczos_tpu_torch.solvers.polish import (
         rayleigh_ritz_polish,
         rayleigh_ritz_polish_host,
     )
 
-    sgn = -1.0 if which == "smallest" else 1.0
-    dev = A_solve.device if A_solve is not None else torch.device(device)
-    if raw is not None and (route is None or route.perm is None):
-        with span("polish.prep"):
-            coo = sp.coo_matrix(raw)
-            # Count distinct diagonals BEFORE any dia conversion (scattered
-            # sparsity would materialize O(n^2) planes).
-            offsets = np.unique(coo.col.astype(np.int64) - coo.row)
-            A64 = None
-            if len(offsets) <= 48:  # DIA-representable: device polish
-                d = sp.dia_matrix(sp.csr_matrix(raw).astype(np.float64))
-                A64 = DiaMatrix(
-                    data=torch.as_tensor(sgn * _dia_rows(d), device=dev),
-                    offsets=tuple(int(o) for o in d.offsets),
-                )
-        if A64 is not None:
-            return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
-    if raw is None and isinstance(A_solve, DiaMatrix):
-        # Framework DIA input: polish against its planes upcast to f64
-        # (representation-limited if they were stored f32).
-        with span("polish.prep"):
+    if isinstance(A_solve, DiaMatrix) and (raw is None or _planes_hold_raw(raw, A_solve, route)):
+        POLISH_PREP["device_upcast"] += 1
+        with span("polish.prep", "device_upcast"):
             A64 = DiaMatrix(data=A_solve.data.double(), offsets=A_solve.offsets)
         return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
-    # Host path: general sparsity (or permuted routes) against the raw f64
-    # matrix through the row-parallel native SpMM (scipy's product, bit for
-    # bit, on every column of the depth-4 panel).
+    dev = A_solve.device if A_solve is not None else torch.device(device)
+    if raw is not None and (route is None or route.perm is None):
+        with span("polish.prep", "host_dia"):
+            csr = sp.csr_matrix(raw)
+            if not csr.has_canonical_format:  # sum duplicates in f64, in a copy
+                csr = csr.astype(np.float64)
+            # None above the limit: scattered sparsity would materialize O(n^2) planes
+            A64 = dia_from_scipy(csr, max_diags=_POLISH_MAX_DIAGS, waste_cap=np.inf,
+                                 dtype=np.float64, device="cpu")
+            if A64 is not None:
+                if which == "smallest":
+                    A64.data.neg_()
+                A64 = A64.to(dev)
+        if A64 is not None:
+            POLISH_PREP["host_dia"] += 1
+            return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
     from ca_lanczos_tpu_torch.ops._spmm_native import CsrMatmul
 
-    with span("polish.prep"):
+    POLISH_PREP["host_csr"] += 1
+    with span("polish.prep", "host_csr"):
         mm = CsrMatmul(sp.csr_matrix(raw).astype(np.float64))
     w, resid, Qp = rayleigh_ritz_polish_host(
-        (lambda Z: -mm(Z)) if sgn < 0 else mm, Q, iters=iters, depth=depth,
+        (lambda Z: -mm(Z)) if which == "smallest" else mm, Q, iters=iters, depth=depth,
     )
     return w, resid, torch.from_numpy(Qp)
 
 
-def _dia_rows(d) -> np.ndarray:
-    """scipy dia_matrix data -> DiaMatrix row convention
-    (A[i, i+k] = data[row_of_k, i]; scipy stores A[i, i+k] at
-    data[row_of_k, i+k])."""
-    n = d.shape[0]
-    out = np.zeros((len(d.offsets), n), np.float64)
-    for j, k in enumerate(d.offsets):
-        if k >= 0:
-            out[j, : n - k] = d.data[j, k:n]
-        else:
-            out[j, -k:] = d.data[j, : n + k]
-    return out
+def _planes_hold_raw(raw, A, route) -> bool:
+    """True when the route's DIA planes ``A``, upcast to f64, are bit for
+    bit the f64 planes of ``raw``: an unpermuted route, a raw dtype the
+    planes hold exactly, no duplicate entries left in ``raw`` that the
+    route summed in the planes' dtype (the f64 build sums them in f64),
+    and at most ``_POLISH_MAX_DIAGS`` diagonals."""
+    import scipy.sparse as sp
+
+    planes = {torch.float32: np.float32, torch.float64: np.float64}.get(A.data.dtype)
+    dtype = raw.dtype if sp.issparse(raw) else np.asarray(raw).dtype
+    return (route is not None and route.perm is None and planes is not None
+            and np.can_cast(dtype, planes, "safe")
+            and getattr(raw, "nnz", route.nnz) == route.nnz
+            and len(A.offsets) <= _POLISH_MAX_DIAGS)

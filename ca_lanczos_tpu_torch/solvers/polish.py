@@ -103,8 +103,11 @@ def rayleigh_ritz_polish(A64, X, iters: int = 3, depth: int = 4
                          ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
     """Polish a locked block against the f64 operator on its device.
 
-    A64: a DiaMatrix with FLOAT64 planes (built from the host's f64
-    arrays — not the solve's f32 streaming copy).
+    A64: a DiaMatrix with FLOAT64 planes that hold the matrix's values
+    exactly: the solve's own planes upcast on the device when they hold
+    the raw matrix bit for bit (an f32 raw matrix in f32 planes), else
+    planes built from the raw matrix in f64 (``harness.auto._polish_block``)
+    — never an f32 rounding of an f64 matrix.
     X: (n, k) converged block, any float dtype, natural row order.
     Returns (eigs desc (k,) f64, true absolute residuals ||Ax - wx|| (k,)
     f64, polished orthonormal block (n, k) f32 on A64's device)."""

@@ -101,13 +101,10 @@ def profiled(torch, label: str, fn, wall: float):
 
 def configuration(torch, label: str, a, prefer: str, driver: str = "fused",
                   max_lanczos: int = 32, **route_kw) -> None:
-    import scipy.sparse as sp
-
     from ca_lanczos_tpu_torch.config import LanczosConfig
     from ca_lanczos_tpu_torch.harness import auto
     from ca_lanczos_tpu_torch.harness.matrix_info import recommend_solver
-    from ca_lanczos_tpu_torch.ops.formats import make_operator
-    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
+    from ca_lanczos_tpu_torch.ops.formats import dia_from_scipy, make_operator
     from ca_lanczos_tpu_torch.solvers.fused_restarted import fused_restarted_ca_lanczos
     from ca_lanczos_tpu_torch.solvers.implicitly_restarted import impl_restarted_ca_lanczos
     from ca_lanczos_tpu_torch.solvers.restarted import restarted_ca_lanczos
@@ -143,14 +140,10 @@ def configuration(torch, label: str, a, prefer: str, driver: str = "fused",
     profiled(torch, f"{label} solve", solve, wall)
     Q = route.restore(res.Q_conv)
     if route.perm is None:
-        coo = sp.coo_matrix(a)
-        _, t_off = timed(torch, lambda: np.unique(coo.col.astype(np.int64) - coo.row))
-        d, t_dia = timed(torch, lambda: sp.dia_matrix(sp.csr_matrix(a).astype(np.float64)))
-        planes, t_rows = timed(torch, lambda: auto._dia_rows(d))
-        data, t_h2d = timed(torch, lambda: torch.as_tensor(planes, device=DEVICE))
-        A64 = DiaMatrix(data=data, offsets=tuple(int(o) for o in d.offsets))
-        print(f"{label} polish host prep: offsets {t_off:.3f}s dia planes {t_dia:.3f}s "
-              f"row layout {t_rows:.3f}s to the card {t_h2d:.3f}s ({len(d.offsets)} diagonals)")
+        A64, t_prep = timed(torch, lambda: dia_from_scipy(a, max_diags=48, waste_cap=np.inf,
+                                                          dtype=np.float64, device=DEVICE))
+        print(f"{label} polish host prep (f64 DIA planes to the card): {t_prep:.3f}s "
+              f"({len(A64.offsets)} diagonals)")
         polish = lambda: rayleigh_ritz_polish(A64, Q, iters=10, depth=4)  # noqa: E731
         polish()  # first use
         _, wall = timed(torch, polish)
