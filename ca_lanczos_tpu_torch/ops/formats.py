@@ -50,31 +50,37 @@ def dia_from_scipy(
 ) -> Optional[DiaMatrix]:
     """DIA storage of a scipy matrix when it is diagonal-sparse, else None:
     at most ``max_diags`` distinct diagonals and dense-plane padding
-    ``len(offsets) * n`` within ``waste_cap`` x nnz.  O(nnz log nnz)."""
+    ``len(offsets) * n`` within ``waste_cap`` x nnz.  Built on ``device``
+    in O(n + nnz): the CSR arrays are copied there, and the offsets, each
+    entry's plane and the scatter run there (``device="cpu"`` builds on
+    the host)."""
     import scipy.sparse as sp
 
     csr = sp.csr_matrix(a)
-    csr.sum_duplicates()  # a no-op on a canonical CSR; COO's would sort again
-    coo = csr.tocoo()
-    n = coo.shape[0]
-    if coo.shape[0] != coo.shape[1]:
+    csr.sum_duplicates()  # a no-op on a canonical CSR
+    n = csr.shape[0]
+    if csr.shape[0] != csr.shape[1]:
         raise ValueError("square matrices only")
-    if np.iscomplexobj(coo.data):
+    if np.iscomplexobj(csr.data):
         raise ValueError("real matrices only (astype would silently drop imaginary parts)")
     if dtype is None:
-        dtype = np.float64 if coo.data.dtype == np.float64 else np.float32
-    if coo.nnz == 0:
-        return DiaMatrix(data=torch.zeros((1, n), dtype=_torch_dtype(dtype), device=device),
-                         offsets=(0,))
-    offs_e = coo.col.astype(np.int64) - coo.row.astype(np.int64)
-    offsets = np.unique(offs_e)
-    if len(offsets) > max_diags or len(offsets) * n > waste_cap * coo.nnz:
+        dtype = np.float64 if csr.data.dtype == np.float64 else np.float32
+    tdtype = _torch_dtype(dtype)
+    if csr.nnz == 0:
+        return DiaMatrix(data=torch.zeros((1, n), dtype=tdtype, device=device), offsets=(0,))
+    dev = torch.device(device)
+    counts = torch.from_numpy(np.diff(csr.indptr)).to(dev)
+    rows = torch.repeat_interleave(torch.arange(n, device=dev), counts, output_size=csr.nnz)
+    shift = torch.from_numpy(csr.indices).to(dev).long() - rows + (n - 1)  # offset + n - 1
+    present = torch.bincount(shift, minlength=2 * n - 1) > 0
+    offsets = torch.nonzero(present).squeeze(1) - (n - 1)
+    nd = int(offsets.numel())
+    if nd > max_diags or nd * n > waste_cap * csr.nnz:
         return None
-    data = np.zeros((len(offsets), n), dtype)
-    k = np.searchsorted(offsets, offs_e)
-    data[k, coo.row] = coo.data.astype(dtype)
-    return DiaMatrix(data=torch.from_numpy(data).to(device),
-                     offsets=tuple(int(d) for d in offsets))
+    plane = torch.cumsum(present, 0) - 1  # each offset's plane, by offset + n - 1
+    data = torch.zeros((nd, n), dtype=tdtype, device=dev)
+    data.view(-1)[plane[shift] * n + rows] = torch.from_numpy(csr.data).to(dev).to(tdtype)
+    return DiaMatrix(data=data, offsets=tuple(int(d) for d in offsets.tolist()))
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -366,10 +372,19 @@ def make_operator(
             )
         Ail, perm_il, _ = _maybe_ilv(Ah, csr, notes, True, device)
         return Ail, OperatorRoute("ilv", perm_il, ["forced ilv"] + notes, nnz, n_orig=n)
+    def pell(m):
+        """The PELL planes of ``m``: encoded on the host (span
+        ``route.encode``, its args the encoding asked for), then copied to
+        ``device`` (``route.copy``, its args the encoder's choice)."""
+        with span("route.encode", encoding):
+            planes = PellMatrix.encode(m, tile=tile, encoding=encoding,
+                                       max_windows=max_windows, sw=sw)
+        with span("route.copy", f"{planes.enc} n_win={planes.n_win} "
+                                f"k_slots={planes.k_slots} {planes.encoder}"):
+            return planes.to(device)
+
     if prefer == "pell":
-        A = PellMatrix.from_scipy(csr, tile=tile, encoding=encoding, max_windows=max_windows,
-                                  sw=sw, device=device)
-        return A, OperatorRoute("pell", None, ["forced pell"], nnz)
+        return pell(csr), OperatorRoute("pell", None, ["forced pell"], nnz)
     if prefer == "ell":
         return (EllMatrix.from_scipy(csr, device=device),
                 OperatorRoute("ell", None, ["forced ell"], nnz))
@@ -383,8 +398,7 @@ def make_operator(
         if A is not None:
             return A
         try:
-            return PellMatrix.from_scipy(m, tile=tile, encoding=encoding,
-                                         max_windows=max_windows, sw=sw, device=device)
+            return pell(m)
         except ValueError as e:  # window overflow
             notes.append(f"pell rejected: {e}")
             return None

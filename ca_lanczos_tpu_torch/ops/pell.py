@@ -1,9 +1,10 @@
 """PELL, pooled-chunk windowed ELL: the general-sparsity operator format.
 
 Counterpart of ``ca_lanczos_tpu/ops/pell.py``.  The planes, the statics and
-the encoders are the JAX package's, copied (``from_scipy`` and the grouped
-encoder below are verbatim apart from where the planes land), so both
-packages encode a matrix to the same bits.  The layout, in brief:
+the encoders are the JAX package's, copied (``PellMatrix.encode`` and the
+grouped encoder below are verbatim apart from where the planes land: host
+arrays, which ``PellPlanes.to`` or ``from_scipy`` copy to a device), so
+both packages encode a matrix to the same bits.  The layout, in brief:
 
 * rows live on lanes: each 128-row group packs consecutive rows; ELL slots
   stack in slot-tiles of 8;
@@ -40,6 +41,7 @@ each 128-row group at its last occupied slot.
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -51,6 +53,45 @@ SLOTS = 8  # slot-tile depth
 
 def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+# one count per ``PellMatrix.encode`` call, by the encoding it chose
+ENCODED = {"unit": 0, "grouped": 0, "grouped4": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class PellPlanes:
+    """A PELL encoding on the host: the numpy planes and statics that
+    ``PellMatrix.encode`` computes, and which encoder ran (``"native"``
+    or ``"numpy"``).  ``to`` copies them to a device as a PellMatrix.
+
+    The encode stops here, short of a PellMatrix, so that the copy can be
+    timed apart from it without moving work to the host.  A PellMatrix
+    derives ``slot_count`` from its planes where they lie, in a pass over
+    every slot (400 MB of values at 4M rows and 24 slots a row): slow on
+    the host, a few milliseconds on the card."""
+
+    vals: np.ndarray
+    lidx: np.ndarray
+    cbase: np.ndarray
+    span_row: np.ndarray
+    n: int
+    tile: int
+    k_slots: int
+    sw: int
+    nnz_count: int
+    n_win: int
+    enc: str
+    encoder: str
+
+    def to(self, device) -> "PellMatrix":
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        return PellMatrix(vals=put(self.vals), lidx=put(self.lidx), cbase=put(self.cbase),
+                          span_row=put(self.span_row), n=self.n, tile=self.tile,
+                          k_slots=self.k_slots, sw=self.sw, nnz_count=self.nnz_count,
+                          n_win=self.n_win, enc=self.enc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,7 +238,21 @@ class PellMatrix:
         encoding: str = "unit",
         native: object = "auto",
     ) -> "PellMatrix":
-        """Encode a scipy.sparse matrix (vectorized, O(nnz log nnz)).
+        """``encode`` on the host, then the planes copied to ``device``."""
+        return PellMatrix.encode(a, tile=tile, sw=sw, max_windows=max_windows,
+                                 encoding=encoding, native=native).to(device)
+
+    @staticmethod
+    def encode(
+        a,
+        tile: int = 1024,
+        sw: Optional[int] = None,
+        max_windows: int = 16,
+        encoding: str = "unit",
+        native: object = "auto",
+    ) -> "PellPlanes":
+        """Encode a scipy.sparse matrix on the host (vectorized, O(nnz log
+        nnz)); each call counts its chosen encoding in ``ENCODED``.
 
         sw: x-span WINDOW width in elements (multiple of 1024); default =
         smallest width covering every tile's column spread in ONE window
@@ -207,8 +262,6 @@ class PellMatrix:
         without RCM; only sparsity needing more than ``max_windows``
         windows of sw (i.e. > max_windows*sw bytes of x per tile resident
         in VMEM) is rejected.
-        cmax is ignored: the unit encoding always carries 8 chunk bindings
-        per slot-tile.
         encoding: "unit", "grouped" (two spread-4 windows), "grouped4"
         (four spread-2 windows — multi-cluster tiles, GROUPED_GEOM), or
         "auto" (plan all, keep the lowest HBM traffic per SpMV — grouped
@@ -256,15 +309,6 @@ class PellMatrix:
                 else np.asarray([lo_r // LANES], np.int64)
             )
 
-        def _greedy_count(chunks, srq):
-            """Windows of srq chunks (1024-aligned starts) a tile needs."""
-            i = cnt = 0
-            while i < len(chunks):
-                start = (int(chunks[i]) // 8) * 8
-                cnt += 1
-                i = int(np.searchsorted(chunks, start + srq, side="left"))
-            return cnt
-
         if sw is None:
             if need <= SW_MAX:
                 sw = need
@@ -277,15 +321,32 @@ class PellMatrix:
                 # tile), making the span stream ~40% of kernel traffic
                 # (round-5; see BENCHMARKS.md).
                 best = None
-                for cand in (1024, 2048, 4096, 8192, SW_MULTI, 32768):
-                    srq = cand // LANES
-                    tot = mx = 0
-                    for ch in tile_chunks:
-                        c = _greedy_count(ch, srq)
-                        tot += c
-                        mx = max(mx, c)
-                        if mx > max_windows:
-                            break
+                cands = (1024, 2048, 4096, 8192, SW_MULTI, 32768)
+                flat = np.concatenate(tile_chunks)
+                lens = np.asarray([len(ch) for ch in tile_chunks])
+                hi = np.cumsum(lens)
+                lo = hi - lens
+                span = int(flat.max()) + 1 + max(cands) // LANES
+                keys = np.repeat(np.arange(ntiles, dtype=np.int64) * span, lens) + flat
+
+                def _greedy_counts(srq):
+                    """Windows of srq chunks (1024-aligned starts) each tile
+                    needs: the greedy cover (a window starts at the first
+                    chunk not yet covered), walked for all tiles at once on
+                    their chunks laid end to end, keyed tile * span + chunk."""
+                    i = lo.copy()
+                    cnt = np.zeros(ntiles, np.int64)
+                    live = np.flatnonzero(i < hi)
+                    while live.size:
+                        start = (flat[i[live]] // 8) * 8
+                        cnt[live] += 1
+                        i[live] = np.searchsorted(keys, live * span + start + srq, side="left")
+                        live = live[i[live] < hi[live]]
+                    return cnt
+
+                for cand in cands:
+                    counts = _greedy_counts(cand // LANES)
+                    tot, mx = int(counts.sum()), int(counts.max())
                     if mx > max_windows:
                         continue
                     # Each window costs its fetch plus a fixed DMA-start
@@ -323,15 +384,13 @@ class PellMatrix:
             span_rows[t, : len(wins)] = wins
             span_rows[t, len(wins) :] = wins[-1]  # harmless repeat DMA
 
-        def _finish(vals, lidx, cbase, K, enc):
-            def put(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-            return PellMatrix(
-                vals=put(vals),
-                lidx=put(lidx),
-                cbase=put(cbase),
-                span_row=put(span_rows.astype(np.int32)),
+        def _finish(vals, lidx, cbase, K, enc, encoder):
+            ENCODED[enc] += 1
+            return PellPlanes(
+                vals=vals,
+                lidx=lidx,
+                cbase=cbase,
+                span_row=span_rows.astype(np.int32),
                 n=n,
                 tile=tile,
                 k_slots=K,
@@ -339,6 +398,7 @@ class PellMatrix:
                 nnz_count=int(csr.nnz),
                 n_win=W,
                 enc=enc,
+                encoder=encoder,
             )
 
         # Native (C++) encoder: block-parallel O(nnz) planning, plane
@@ -361,15 +421,18 @@ class PellMatrix:
             csr_c = _pn._Csr(indptr, indices, data, dtype)
             wins32 = np.ascontiguousarray(span_rows, np.int32)
             wcnt = np.asarray([len(w) for w in win_lists], np.int32)
-            ch_u, uord_u, K_u = _pn.plan_unit(csr_c, n, tile, sr, wins32, wcnt)
-            plans = {}
-            for g in _grouped_tries(encoding):
-                nw = GROUPED_GEOM[g][0]
-                gp = _pn.plan_grouped(csr_c, n, tile, sr, wins32, wcnt, nw=nw)
-                if gp is not None:
-                    plans[g] = gp
-                if g in plans and _grouped_settles(encoding, g, plans[g][3], K_u):
-                    break
+            # the plans are independent: run them side by side (ctypes
+            # releases the GIL; each is OpenMP-parallel inside).  This
+            # shortens the host encode that every PELL route repeats, and
+            # with it the swing of the route's seconds under a shared host
+            tries = _grouped_tries(encoding)
+            with ThreadPoolExecutor(1 + len(tries)) as pool:
+                unit = pool.submit(_pn.plan_unit, csr_c, n, tile, sr, wins32, wcnt)
+                grouped = {g: pool.submit(_pn.plan_grouped, csr_c, n, tile, sr, wins32, wcnt,
+                                          nw=GROUPED_GEOM[g][0]) for g in tries}
+                ch_u, uord_u, K_u = unit.result()
+                plans = {g: f.result() for g, f in grouped.items()}
+            plans = {g: p for g, p in plans.items() if p is not None}
             if encoding in GROUPED_GEOM and encoding not in plans:
                 raise ValueError(
                     f"{encoding} PELL encoding failed; use encoding='unit'"
@@ -381,9 +444,9 @@ class PellMatrix:
                     csr_c, n, tile, gp[0], gp[1], gp[2], gp[3], dtype,
                     nw=GROUPED_GEOM[pick][0],
                 )
-                return _finish(*planes, pick)
+                return _finish(*planes, pick, "native")
             planes = _pn.emit_unit(csr_c, n, tile, ch_u, uord_u, K_u, dtype)
-            return _finish(*planes, "unit")
+            return _finish(*planes, "unit", "native")
 
         # Pass 2 (vectorized): unit assignment.  A UNIT is a (block,
         # chunk, layer) triple; layer j holds the (j+1)-th nonzero each
@@ -493,7 +556,7 @@ class PellMatrix:
                 lidx[rix, cix] = ln[order]
                 cbase[ublock // B, (ublock % B) * np.int32(K) + uord] = uch
 
-        return _finish(vals, lidx, cbase, K, enc)
+        return _finish(vals, lidx, cbase, K, enc, "numpy")
 
     @staticmethod
     def from_dense(a: np.ndarray, **kw) -> "PellMatrix":
@@ -556,20 +619,14 @@ _ENC_SLOT_COST = {"unit": 1.0, "grouped": 0.80, "grouped4": 0.84}
 
 
 def _grouped_tries(encoding: str):
-    """Grouped geometries to attempt for an encoding request, cheapest
-    mechanism first."""
+    """Grouped geometries to plan for an encoding request, cheapest
+    mechanism first: auto plans every one (a 4-window K reduction can
+    beat an already-winning 2-window plan)."""
     if encoding == "unit":
         return []
     if encoding in GROUPED_GEOM:
         return [encoding]
     return ["grouped", "grouped4"]  # auto
-
-
-def _grouped_settles(encoding: str, geom: str, K_g: int, K_u: int) -> bool:
-    """auto plans EVERY geometry (a 4-window K reduction can beat an
-    already-winning 2-window plan; planning costs ~15 s at 10M rows
-    next to minutes of solve); explicit requests stop at their own."""
-    return encoding != "auto"
 
 
 def _pick_encoding(encoding: str, K_u: int, grouped_Ks: dict) -> str:

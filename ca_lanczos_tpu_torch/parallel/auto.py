@@ -132,7 +132,7 @@ def dist_solve_auto(
     block in f64 against the raw matrix.  SPMD (module docstring).
     ``stage_seconds`` holds route, probe, solve and polish (rank 0's
     clock, each stage ending with the device synchronised)."""
-    from ca_lanczos_tpu_torch.harness.auto import _escalate, _ladder, _polish_block
+    from ca_lanczos_tpu_torch.harness.auto import _escalate, _ladder, _polish_settled
     from ca_lanczos_tpu_torch.harness.matrix_info import recommend_solver
     from ca_lanczos_tpu_torch.parallel.dist_irl import dist_impl_restarted_ca_lanczos
     from ca_lanczos_tpu_torch.parallel.driver import root_eval
@@ -186,25 +186,29 @@ def dist_solve_auto(
         Q = route.restore(Q)
     eigs = np.asarray(res.eigs)
     presid = None
+    converged, passes = bool(res.converged), 0
     if polish > 0 and Q is not None and Q.shape[1] > 0:
         with stage("polish", times, mesh.device):
             out = None
             if dist.get_rank() == 0:
-                w, pr, Qp = _polish_block(raw, None, route, Q, which, polish, polish_depth,
-                                          device=mesh.device)
-                out = (w, pr)
-            w, pr = comm.broadcast_object(out, mesh.device)
+                w, pr, Qp, passes, settled = _polish_settled(
+                    raw, None, route, Q, which, polish, polish_depth, n_want0,
+                    device=mesh.device)
+                out = (w, pr, passes, settled)
+            w, pr, passes, settled = comm.broadcast_object(out, mesh.device)
         keep = min(n_want0, len(w))
         eigs, presid = w[:keep], pr[:keep]
         Q = Qp[:, :keep] if dist.get_rank() == 0 else None
         solver = solver + f"+polish{polish}"
+        converged = converged and settled
     elif dist.get_rank() != 0:
         Q = None
     if which == "smallest":
         eigs = -eigs
-    return AutoResult(eigs=eigs, Q_conv=Q, converged=bool(res.converged),
+    return AutoResult(eigs=eigs, Q_conv=Q, converged=converged,
                       n_restarts=int(res.n_restarts), solver=solver, escalated=escalated,
-                      route=route, polish_resid=presid, stage_seconds=times)
+                      route=route, polish_resid=presid, polish_passes=passes,
+                      stage_seconds=times)
 
 
 def solve_rank(a, r, max_lanczos: int, cfg: LanczosConfig, n_hosts: int = 0,

@@ -35,6 +35,8 @@ from ca_lanczos_tpu_torch.ops.qr import _chol_safe
 from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
 from ca_lanczos_tpu_torch.utils.spans import span
 
+DEPTH = 4  # the passes' default residual expansion depth
+
 
 def _cholqr2_f32(Z: torch.Tensor) -> torch.Tensor:
     for _ in range(2):
@@ -83,7 +85,14 @@ def _polish_pass(A64, A32, X: torch.Tensor, k: int, depth: int, final: bool):
             # f64 generalized Gram pair: the f32 Gram's ~sqrt(n)*eps_f32 error
             # would re-inject subspace mixing at every rotation.
             Z64 = Z.double()
-            G = (Z64.T @ A64.matvec(Z64)).cpu().numpy()
+            if depth <= DEPTH:
+                AZ = A64.matvec(Z64)
+            else:  # k columns at a time: no more memory than a pass at DEPTH
+                AZ = torch.empty_like(Z64)
+                for j in range(0, AZ.shape[1], k):
+                    AZ[:, j:j + k] = A64.matvec(Z64[:, j:j + k])
+            G = (Z64.T @ AZ).cpu().numpy()
+            del AZ
             M = (Z64.T @ Z64).cpu().numpy()
             wa, Ua = sla.eigh((G + G.T) / 2, (M + M.T) / 2)
         else:
@@ -99,7 +108,7 @@ def _polish_pass(A64, A32, X: torch.Tensor, k: int, depth: int, final: bool):
     return w.cpu().numpy(), resid.cpu().numpy(), Q
 
 
-def rayleigh_ritz_polish(A64, X, iters: int = 3, depth: int = 4
+def rayleigh_ritz_polish(A64, X, iters: int = 3, depth: int = DEPTH
                          ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
     """Polish a locked block against the f64 operator on its device.
 

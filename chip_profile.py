@@ -26,9 +26,9 @@ IRL ``impl_restarted_ca_lanczos`` at max_lanczos=48), runs each stage of
   ``1 - busy / unprofiled wall`` (the profiler slows the host, so its own
   wall is not used), the device ms per call of each hand-written kernel,
   and the top 15 operators and kernels by device time;
-* the polish: for A, C and D the host preparation of the f64 planes (offset
-  scan, scipy DIA conversion) and the device polish, profiled like the
-  solve; for B (a permuted route) the host polish's wall seconds.
+* the polish: for A, C and D the build of the f64 planes on the card
+  (``dia_from_scipy``) and the device polish, profiled like the solve;
+  for B (a permuted route) the host polish's wall seconds.
 
 G and H are chip_smoke.py's phases of the same names: G the time
 propagators (20 time steps of ``propagate`` lanczos and
@@ -142,7 +142,7 @@ def configuration(torch, label: str, a, prefer: str, driver: str = "fused",
     if route.perm is None:
         A64, t_prep = timed(torch, lambda: dia_from_scipy(a, max_diags=48, waste_cap=np.inf,
                                                           dtype=np.float64, device=DEVICE))
-        print(f"{label} polish host prep (f64 DIA planes to the card): {t_prep:.3f}s "
+        print(f"{label} polish prep (f64 DIA planes built on the card): {t_prep:.3f}s "
               f"({len(A64.offsets)} diagonals)")
         polish = lambda: rayleigh_ritz_polish(A64, Q, iters=10, depth=4)  # noqa: E731
         polish()  # first use

@@ -220,3 +220,55 @@ def test_solve_auto_polishes_on_the_solve_planes(monkeypatch):
     exact = sla.eigh_tridiagonal(a64.diagonal(0), a64.diagonal(1), eigvals_only=True)
     assert res.converged
     np.testing.assert_allclose(np.sort(res.eigs)[::-1], exact[::-1][:5], rtol=1e-10)
+
+
+def _dia_cases():
+    band = _banded((0, 1, 5))
+    messy = sp.coo_matrix(band)
+    messy = sp.csr_matrix((np.concatenate([messy.data, [0.5, -0.25]]),
+                           (np.concatenate([messy.row, [3, 3]]),
+                            np.concatenate([messy.col, [8, 8]]))), shape=band.shape)
+    zeros = band.copy()
+    zeros.data[zeros.indices == 7] = 0.0  # stored zeros: column 7 of every row
+    return {"band_f32": band, "band_f64": band.astype(np.float64), "duplicates": messy,
+            "stored_zero": zeros, "empty": sp.csr_matrix((N, N), dtype=np.float32),
+            "wide": _banded(tuple(range(0, 30)))}
+
+
+def _numpy_dia(a, max_diags, waste_cap, dtype):
+    """The host build ``dia_from_scipy`` had before it built on its device
+    (numpy, O(nnz log nnz)): the oracle.  (offsets, planes) or None."""
+    csr = sp.csr_matrix(a)
+    csr.sum_duplicates()
+    coo = csr.tocoo()
+    n = coo.shape[0]
+    if dtype is None:
+        dtype = np.float64 if coo.data.dtype == np.float64 else np.float32
+    if coo.nnz == 0:
+        return (0,), np.zeros((1, n), dtype)
+    offs_e = coo.col.astype(np.int64) - coo.row.astype(np.int64)
+    offsets = np.unique(offs_e)
+    if len(offsets) > max_diags or len(offsets) * n > waste_cap * coo.nnz:
+        return None
+    data = np.zeros((len(offsets), n), dtype)
+    data[np.searchsorted(offsets, offs_e), coo.row] = coo.data.astype(dtype)
+    return tuple(int(d) for d in offsets), data
+
+
+@pytest.mark.parametrize("name", list(_dia_cases()))
+@pytest.mark.parametrize("dtype", [None, np.float64])
+def test_dia_on_device_is_dia_from_scipy(name, dtype):
+    """The planes ``dia_from_scipy`` builds on its device (the polish's
+    ``host_dia`` branch, the routes on the host) are the old numpy
+    build's, bit for bit, and refused under the same limits."""
+    from ca_lanczos_tpu_torch.ops.formats import dia_from_scipy
+
+    a = _dia_cases()[name]
+    for max_diags, cap in ((64, np.inf), (16, np.inf), (64, 8.0)):
+        want = _numpy_dia(a.copy(), max_diags, cap, dtype)
+        got = dia_from_scipy(a.copy(), max_diags=max_diags, waste_cap=cap, dtype=dtype,
+                             device="cpu")
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert got.offsets == want[0]
+            assert torch.equal(got.data, torch.from_numpy(want[1]))
