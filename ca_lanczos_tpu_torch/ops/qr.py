@@ -7,7 +7,9 @@ breakdown), and the mixed-precision variants that keep X and Q in the
 storage dtype while the Gram product, Cholesky and triangular solve run
 in float64.
 
-The Gram products are ``torch.matmul`` (cuBLAS on the card).  The TPU
+The Gram products are ``torch.matmul`` (cuBLAS on the card); the
+triangular solve of a tall block on the card is the hand-written kernel
+of ``ops.cuda_trsm`` (see ``_rsolve``).  The TPU
 package ran its float64 reductions row-chunked (``_MP_CHUNK_ROWS``) so no
 promoted copy of a tall block was ever resident on a 16 GB chip; on an
 80 GB H100 a promoted (11M, 32) block is 2.8 GB, so the port promotes
@@ -19,6 +21,12 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ca_lanczos_tpu_torch.ops import cuda_trsm
+
+# Every _rsolve call, by where it went: the tall-skinny kernel or the
+# library's triangular solve.
+RSOLVE = {"kernel": 0, "library": 0}
 
 
 def _sign_fix(Q: torch.Tensor, R: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -53,7 +61,14 @@ def _chol_safe(G: torch.Tensor) -> torch.Tensor:
 
 
 def _rsolve(X: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
-    """X R^{-1} for upper-triangular R."""
+    """X R^{-1} for upper-triangular R: the tall-skinny kernel for a real
+    float32/float64 block on the card with at most 64 columns, row- or
+    column-major (``cuda_trsm.fits``); the library's triangular solve for
+    CPU tensors, complex blocks and wider ones.  Counted in ``RSOLVE``."""
+    if X.device.type == "cuda" and cuda_trsm.fits(X):
+        RSOLVE["kernel"] += 1
+        return cuda_trsm.tall_trsm(X, R)
+    RSOLVE["library"] += 1
     return torch.linalg.solve_triangular(R, X, upper=True, left=False)
 
 

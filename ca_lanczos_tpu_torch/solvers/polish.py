@@ -31,7 +31,7 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
-from ca_lanczos_tpu_torch.ops.qr import _chol_safe
+from ca_lanczos_tpu_torch.ops.qr import _chol_safe, _rsolve
 from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
 from ca_lanczos_tpu_torch.utils.spans import span
 
@@ -41,7 +41,7 @@ DEPTH = 4  # the passes' default residual expansion depth
 def _cholqr2_f32(Z: torch.Tensor) -> torch.Tensor:
     for _ in range(2):
         L = _chol_safe(Z.T @ Z)
-        Z = torch.linalg.solve_triangular(L.T, Z, upper=True, left=False)
+        Z = _rsolve(Z, L.T)
     return Z
 
 

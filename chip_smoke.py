@@ -27,6 +27,9 @@ Phase 1  each kernel against its plain PyTorch version on the card, f32 and
          K4 and K5 on the planes of exp/pell_10m_e2e.py's operator
          (11,010,048 rows, encoded "unit", "auto" (it must pick grouped)
          and "grouped4").
+         The tall-skinny triangular solve (csrc/tall_trsm.cu) at the CholQR
+         blocks of ``TRSM_CASES`` (bound: the block read once and written
+         once), torch.linalg.solve_triangular as its library yardstick.
 Phase S  the host polish's SpMM: ``ops._spmm_native.CsrMatmul`` (the
          OpenMP product of ``csrc/host_spmm.cpp``, built with g++ in phase
          0) against scipy's ``a @ X`` on phase C's matrix in f64, as
@@ -285,9 +288,10 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 def counters():
     """The kernels' launch counts and the host SpMM's apply count."""
-    from ca_lanczos_tpu_torch.ops import _spmm_native, cuda_ilv, cuda_pell, cuda_spmv
+    from ca_lanczos_tpu_torch.ops import _spmm_native, cuda_ilv, cuda_pell, cuda_spmv, cuda_trsm
 
-    return (cuda_spmv.LAUNCHES, cuda_ilv.LAUNCHES, cuda_pell.LAUNCHES, _spmm_native.APPLIES)
+    return (cuda_spmv.LAUNCHES, cuda_ilv.LAUNCHES, cuda_pell.LAUNCHES, cuda_trsm.LAUNCHES,
+            _spmm_native.APPLIES)
 
 
 def phase0(torch):
@@ -309,12 +313,13 @@ def phase0(torch):
         cuda_ilv,
         cuda_pell,
         cuda_spmv,
+        cuda_trsm,
     )
 
     from ca_lanczos_tpu_torch.utils import mmio
 
     builds = {"dia_powers": cuda_spmv._lib, "ilv_powers": cuda_ilv._lib,
-              "pell": cuda_pell._lib, "pell_encode (g++)": _pell_native.available,
+              "pell": cuda_pell._lib, "tall_trsm": cuda_trsm._lib, "pell_encode (g++)": _pell_native.available,
               "mmio (g++)": mmio.native_available, "host_spmm (g++)": _spmm_native.available}
 
     def build(item):
@@ -645,6 +650,64 @@ def phase1_pell(torch, a32):
     return out
 
 
+TRSM_CASES = (  # (n, k, dtype, layout): the solve's and the polish's CholQR blocks
+    (11010048, 9, "float32", "rows"), (11010048, 8, "float32", "rows"),
+    (11010048, 13, "float32", "rows"), (11010048, 20, "float32", "rows"),
+    (4194304, 9, "float32", "rows"), (4194304, 9, "float32", "cols"),
+    (11010048, 9, "float64", "rows"))
+
+
+def phase1_trsm(torch):
+    """The tall-skinny triangular solve vs its plain version at the CholQR
+    blocks of the benchmark's cells (the chain's fused solve (n, 9) and
+    (n, 8), its polish (n, 13), the refine (n, 20), the Ising chain's
+    (4,194,304, 9), column-major where the PELL powers hand it over) and
+    one f64 case: X gaussian, R the upper Cholesky factor of X^T X as a
+    CholQR pass makes it (``ops.qr._chol_safe``, a transposed view).
+    Bound: X read once and Y written once; library: torch.linalg.
+    solve_triangular; beside them the time of ``X.clone()``, the same
+    bytes moved by a plain copy.  Returns the (11,010,048, 9) f32 row."""
+    from ca_lanczos_tpu_torch.ops import cuda_trsm
+    from ca_lanczos_tpu_torch.ops.qr import _chol_safe
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for n, k, name, lay in TRSM_CASES:
+        dt = getattr(torch, name)
+        X = torch.randn((k, n) if lay == "cols" else (n, k), generator=gen, device="cuda",
+                        dtype=dt)
+        X = X.T if lay == "cols" else X
+        R = _chol_safe(X.T @ X).T
+        kern = lambda: cuda_trsm.tall_trsm(X, R)  # noqa: E731
+        plain = lambda: cuda_trsm.tall_trsm_ref(X, R)  # noqa: E731
+        lib = lambda: torch.linalg.solve_triangular(R, X, upper=True, left=False)  # noqa: E731
+        got, ref = kern(), plain()
+        err, abs_err = check_row(torch, "tall_trsm", name, got.T, ref.T)
+        lib_err = rel_err(torch, lib().T, ref.T)
+        del got, ref
+        ms, plain_ms, lib_ms = time_ms(torch, kern), time_ms(torch, plain), time_ms(torch, lib)
+        copy_ms = time_ms(torch, lambda: X.clone())  # the same bytes moved by a plain copy
+        nbytes = 2 * n * k * X.element_size()
+        bms, by = bound_ms(nbytes, n * k * k, name)
+        log(f"kernel tall_trsm [{name}, {lay}] n={n} k={k}: rel_err={err:.3e} "
+            f"(bound {BOUND[name]:.0e}; library vs plain {lib_err:.3e}) abs_err={abs_err:.3e} "
+            f"kernel {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e12:.2f} TB/s) plain {plain_ms:.4f} ms "
+            f"bound {bms:.4f} ms ({by}; {bms / ms:.0%} of it) library {lib_ms:.4f} ms "
+            f"({bms / lib_ms:.0%} of the bound); X.clone() {copy_ms:.4f} ms "
+            f"({bms / copy_ms:.0%})")
+        check_bound("tall_trsm", name, ms, bms)
+        if (n, k, name, lay) == TRSM_CASES[0]:
+            out.append(dict(name="tall_trsm", route="cuda",
+                            source="ca_lanczos_tpu_torch/csrc/tall_trsm.cu",
+                            replaces="none (cuBLAS batch_trsm_right_kernel; the JAX package's "
+                                     "solve is XLA's, ca_lanczos_tpu/ops/qr.py:66)",
+                            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                            bound_by=by, library_ms=lib_ms))
+        del X, R
+    torch.cuda.empty_cache()
+    return out
+
+
 def host_cpu() -> str:
     """The host's CPU model: /proc/cpuinfo's "model name" (x86) or its CPU
     implementer and part (Arm), and the machine type."""
@@ -781,11 +844,13 @@ def nonzero_counts() -> dict:
 
 
 def plain_run(fn):
-    """fn() on ``PlainOp`` operators; fails if any kernel launched."""
+    """fn() on ``PlainOp`` operators; fails if any operator kernel launched
+    (its CholQR passes may run the triangular solve's kernel)."""
     zero_counters()
     out = fn()
-    if nonzero_counts():
-        raise AssertionError(f"the plain witness launched kernels: {nonzero_counts()}")
+    used = {k: v for k, v in nonzero_counts().items() if k != "tall_trsm"}
+    if used:
+        raise AssertionError(f"the plain witness launched kernels: {used}")
     return out
 
 
@@ -1680,6 +1745,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s (from the start of phase 1)")
     rows += phase1_pell(torch, a32)
     rows += phase1_bsr(torch)
+    rows += phase1_trsm(torch)
     log(f"phase 1 (kernels vs plain): {time.perf_counter() - t0:.1f}s")
     phase(torch, "phase S (host SpMM vs scipy)", lambda: phase_s(torch, a32))
 

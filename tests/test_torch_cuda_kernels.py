@@ -1,13 +1,19 @@
 """PyTorch port: the CUDA kernels K1-K5 against their plain versions on
 the card, including the fallbacks (K1 -> K2 steps, K3 -> chained single
-steps) and the three PELL encodings (K4 unit, K5 grouped and grouped4).
+steps) and the three PELL encodings (K4 unit, K5 grouped and grouped4),
+and the tall-skinny triangular solve of the CholQR passes (tall_trsm).
 Needs a CUDA device and nvcc; skips elsewhere.  This file imports no JAX,
 so on a machine without it run
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: f32 1e-5 and f64 1e-12 relative to max|plain| per step (the
-sums run in another order)."""
+sums run in another order).  tall_trsm: the kernel and the plain version
+are both backward-stable substitutions in the block's dtype, rounded in
+another order, so they differ by at most twice the forward bound, 2 k u
+cond(R) relative (u the unit roundoff, Higham's Thm 8.5); at a CholQR
+pass's R (cond(R) = cond(X), near 1 for a gaussian block) that is
+~1e-6 in f32."""
 
 import dataclasses
 import importlib
@@ -17,7 +23,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_pell, cuda_spmv, pell
+from ca_lanczos_tpu_torch.ops import cuda_ilv, cuda_pell, cuda_spmv, cuda_trsm, pell, qr
 from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix, spmv
 
 pytestmark = pytest.mark.requires_cuda
@@ -391,3 +397,102 @@ def test_k1_on_a_complex_q(cuda, dtype, kind):
     assert _rel(torch.view_as_real(got).transpose(1, 2),
                 torch.view_as_real(Vr).transpose(1, 2)) <= BOUND[dtype]
     torch.cuda.synchronize()
+
+
+# ---- the tall-skinny triangular solve (csrc/tall_trsm.cu) ----------------
+
+
+def _cholqr_block(n, k, dtype, device, layout="rows", seed=0):
+    """A gaussian (n, k) block in the given layout and R the upper
+    Cholesky factor of its Gram matrix as a CholQR pass makes it (a
+    transposed view)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if layout == "cols":  # the transposed view of a (k, n) basis
+        X = torch.randn((k, n), generator=gen, device=device, dtype=dtype).T
+    elif layout == "cols_pad":  # the same with a column stride n + 5
+        X = torch.randn((k, n + 5), generator=gen, device=device, dtype=dtype)[:, :n].T
+    elif layout == "slice":  # a column slice: row stride k + 3
+        X = torch.randn((n, k + 3), generator=gen, device=device, dtype=dtype)[:, 2:k + 2]
+    elif layout == "offset":  # contiguous rows, off a 16-byte boundary
+        X = torch.randn(n * k + 1, generator=gen, device=device, dtype=dtype)[1:].view(n, k)
+    else:
+        X = torch.randn((n, k), generator=gen, device=device, dtype=dtype)
+    return X, qr._chol_safe(X.T @ X).T
+
+
+def _trsm_check(X, R):
+    before = cuda_trsm.LAUNCHES["tall_trsm"]
+    got = cuda_trsm.tall_trsm(X, R)
+    torch.cuda.synchronize()
+    assert cuda_trsm.LAUNCHES["tall_trsm"] == before + 1
+    assert got.shape == X.shape and got.is_contiguous()
+    ref = cuda_trsm.tall_trsm_ref(X, R)
+    k = X.shape[1]
+    bound = 2 * k * torch.finfo(X.dtype).eps / 2 * float(torch.linalg.cond(R.double()))
+    assert bool(torch.isfinite(got).all())
+    assert float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref)) <= bound
+
+
+@pytest.mark.parametrize("n,k,dtype,layout", [
+    (11_010_048, 9, torch.float32, "rows"),  # the chain's fused solve
+    (11_010_048, 8, torch.float32, "rows"),
+    (11_010_048, 13, torch.float32, "rows"),  # its polish
+    (4_194_304, 9, torch.float32, "cols"),  # the Ising chain: the PELL powers' view
+    (4_194_304, 9, torch.float32, "rows"),
+    (11_010_048, 9, torch.float64, "rows"),
+])
+def test_tall_trsm_at_the_cells_shapes(cuda, n, k, dtype, layout):
+    _trsm_check(*_cholqr_block(n, k, dtype, cuda, layout))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k,layout", [
+    (3, 9, "rows"), (1, 5, "rows"), (2, 1, "rows"), (1, 3, "cols_pad"),
+    (100_003, 9, "cols_pad"),
+    (256 * 9 + 37, 9, "rows"), (100_003, 1, "rows"),
+    (100_003, 16, "slice"), (100_003, 20, "rows"), (100_003, 33, "cols"),
+    (100_003, 64, "rows"), (100_003, 64, "cols"), (1_000_037, 26, "slice"),
+    (100_003, 9, "offset"), (100_003, 8, "rows"), (100_003, 12, "rows"),
+])
+def test_tall_trsm_ragged_and_wide(cuda, dtype, n, k, layout):
+    X, R = _cholqr_block(n, k, dtype, cuda, layout, seed=k)
+    _trsm_check(X, R)
+    # only R's upper triangle is read
+    dirty = R + torch.tril(torch.full_like(R, float("nan")), -1)
+    assert torch.equal(cuda_trsm.tall_trsm(X, dirty), cuda_trsm.tall_trsm(X, R))
+
+
+def test_tall_trsm_refuses_what_it_does_not_take(cuda):
+    X, R = _cholqr_block(1000, 9, torch.float32, cuda)
+    lib = cuda_trsm._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    Y = torch.empty_like(X)
+    invalid = 1  # cudaErrorInvalidValue
+    for ld, cols, n, k in [(65, 0, 1000, 65), (9, 0, 1000, 0), (8, 0, 1000, 9),
+                           (999, 1, 1000, 9), (9, 0, 0, 9)]:
+        assert lib.tall_trsm_f32(X.data_ptr(), ld, cols, R.data_ptr(), R.stride(0),
+                                 R.stride(1), Y.data_ptr(), n, k, stream) == invalid
+    before = dict(cuda_trsm.LAUNCHES)
+    with pytest.raises(ValueError):
+        cuda_trsm.tall_trsm(torch.zeros(1000, 65, device=cuda), torch.eye(65, device=cuda))
+    with pytest.raises(ValueError):
+        cuda_trsm.tall_trsm(X.to(torch.complex64), R.to(torch.complex64))
+    with pytest.raises(TypeError):
+        cuda_trsm.tall_trsm(X, R.double())
+    with pytest.raises(ValueError):
+        cuda_trsm.tall_trsm(X, R.cpu())
+    assert cuda_trsm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,k,where", [
+    (torch.float32, 9, "kernel"), (torch.float64, 64, "kernel"),
+    (torch.float32, 65, "library"), (torch.complex64, 9, "library"),
+])
+def test_rsolve_dispatch_on_the_card(cuda, dtype, k, where):
+    X = torch.ones((5000, k), dtype=dtype, device=cuda)
+    R = 2 * torch.eye(k, dtype=dtype, device=cuda)
+    before = dict(qr.RSOLVE)
+    Y = qr._rsolve(X, R)
+    assert qr.RSOLVE[where] == before[where] + 1
+    assert sum(qr.RSOLVE.values()) == sum(before.values()) + 1
+    assert torch.equal(Y, X / 2)
