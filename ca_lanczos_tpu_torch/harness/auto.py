@@ -61,29 +61,17 @@ def _n_locked(res) -> int:
     return int(np.sum(np.isfinite(e)))
 
 
-_M_LARGE = 96  # larger-basis rescue rung (see _ladder)
+_M_LARGE = 96  # larger-basis rescue rung (see ladder)
 _CALLS = itertools.count(1)  # numbers each solve_auto span of the process
-_POLISH_MAX_DIAGS = 48  # most diagonals the device polish takes
-# A vector stored in f32 carries up to u = 2^-24 of rounding in each entry,
-# so its f64 residual cannot fall much below u ||A|| (||A|| bounded by the
-# largest absolute row sum).  Polished pairs settle at 0.1-1.1 u ||A|| on
-# the impurity and Ising chains (32,768-65,536 rows, CPU); a slow polish
-# reads 29 u ||A|| after six passes (tests/test_torch_auto.py's smallest
-# end).  A block that came from the solve without a level it needed reads
-# 370-480 u ||A|| after ten (the Ising chain at 65,536 rows on the CPU and
-# at 4,194,304 on the card): above _SETTLE u ||A|| the polish goes on.
-_SETTLE = 32.0
-_SETTLE_PASSES = 8  # most further passes, each at twice the depth
-# one per _polish_block call, by the branch that built its f64 operator
-POLISH_PREP = {"device_upcast": 0, "host_dia": 0, "host_csr": 0}
 
 
-def _ladder(cfg: LanczosConfig, first: str, second: str,
-            max_lanczos: Optional[int] = None):
-    """Escalation ladder (same rungs as the TPU package): the two
-    probe-ordered drivers at the case's config, then full-orth, s=4
-    full-orth and m=96 rescue legs.  Returns [(driver, cfg, label,
-    m_override), ...]."""
+def ladder(cfg: LanczosConfig, first: str, max_lanczos: Optional[int] = None):
+    """Escalation ladder (same rungs as the TPU package): the probe's
+    driver ``first`` and then the other one at the case's config, then
+    full-orth, s=4 full-orth and m=96 rescue legs.  Returns [(driver,
+    cfg, label, m_override), ...]."""
+    second = ("impl_restarted_ca_lanczos" if first == "restarted_ca_lanczos"
+              else "restarted_ca_lanczos")
     attempts = [(first, cfg, first, None), (second, cfg, second, None)]
     if cfg.orth != Orth.FULL:
         c = dataclasses.replace(cfg, orth=Orth.FULL)
@@ -104,7 +92,7 @@ def _ladder(cfg: LanczosConfig, first: str, second: str,
     return attempts
 
 
-def _escalate(run, attempts):
+def escalate(run, attempts):
     """Walk the ladder until a driver converges; otherwise keep the attempt
     that locked the most (finite) pairs.  Returns (result, label, escalated)."""
     best = best_label = None
@@ -178,15 +166,15 @@ def solve_auto(
     ``which="smallest"`` solves -A and negates the eigenvalues back.
 
     ``polish`` > 0 runs that many f64 block-Krylov Rayleigh-Ritz passes on
-    the converged block (solvers.polish): on the operator's device when
-    the raw input is DIA-representable and unpermuted (against the solve
-    planes upcast on the device when they hold the raw values exactly),
-    on the host (the native OpenMP CSR SpMM in f64) otherwise
-    (``_polish_block``), then up to ``_SETTLE_PASSES`` more while a wanted
-    pair's residual stays above the f32 level (``_polish_settled``):
-    ``converged`` is False for a pair that does not settle.  ``over_lock``
-    locks that many EXTRA pairs during the solve so the polish can discard
-    sloppy directions and still return ``cfg.n_wanted`` accurate pairs.
+    the converged block (``solvers.polish.polish_block``): on the
+    operator's device when the raw input is DIA-representable and
+    unpermuted (against the solve planes upcast on the device when they
+    hold the raw values exactly), on the host (the native OpenMP CSR SpMM
+    in f64) otherwise, then more while a wanted pair's residual stays
+    above the f32 level: ``converged`` is False for a pair that does not
+    settle.  ``over_lock`` locks that many EXTRA pairs during the solve so
+    the polish can discard sloppy directions and still return
+    ``cfg.n_wanted`` accurate pairs.
 
     TF32 is switched off for matmuls and cuDNN (process-wide PyTorch
     flags): the f32 Gram products must not round to TF32.
@@ -230,16 +218,11 @@ def solve_auto(
             A = negate_operator(A)
         with stage("probe", times, dev):
             rec = recommend_solver(A, n_wanted=cfg.n_wanted, probe_steps=probe_steps)
-        first = rec["driver"]
-        second = (
-            "impl_restarted_ca_lanczos" if first == "restarted_ca_lanczos"
-            else "restarted_ca_lanczos"
-        )
         with stage("solve", times, dev):
-            res, solver, escalated = _escalate(
+            res, solver, escalated = escalate(
                 lambda name, c, m: _run(name, A, r, m or max_lanczos, c, engine,
                                         cycles_per_call),
-                _ladder(cfg, first, second, max_lanczos),
+                ladder(cfg, rec["driver"], max_lanczos),
             )
         Q = res.Q_conv
         if route is not None and route.perm is not None and Q is not None:
@@ -251,12 +234,11 @@ def solve_auto(
             # Polish in the ORIGINAL frame against the f64 source; the solve
             # frame's negation (which="smallest") is re-applied so the RR
             # keeps the wanted end.
+            from ca_lanczos_tpu_torch.solvers.polish import polish_block
+
             with stage("polish", times, dev):
-                w, presid, Qp, passes, settled = _polish_settled(
+                eigs, presid, Q, passes, settled = polish_block(
                     raw, A, route, Q, which, polish, polish_depth, n_want0)
-            keep = min(n_want0, len(w))
-            eigs, presid = w[:keep], presid[:keep]
-            Q = Qp[:, :keep]
             solver = solver + f"+polish{polish}"
             converged = converged and settled
         if which == "smallest":
@@ -273,125 +255,3 @@ def solve_auto(
             polish_passes=passes,
             stage_seconds=times,
         )
-
-
-def _settled(resid, keep: int, norm: float) -> bool:
-    """True when each of the first ``keep`` pairs' residual lies within
-    ``_SETTLE`` u ``norm`` (the f32 level, see ``_SETTLE``)."""
-    return bool(np.all(np.asarray(resid)[:keep] <= _SETTLE * 2.0**-24 * norm))
-
-
-def _polish_settled(raw, A_solve, route, Q, which, iters: int, depth: int, keep: int,
-                    device="cuda"):
-    """``_polish_block``, then at most ``_SETTLE_PASSES`` further passes
-    at twice ``depth`` while one of the first ``keep`` pairs has not
-    settled (``_settled``): at ``depth`` the Ising chain's unsettled
-    blocks took three times the passes and stopped three times higher
-    (CPU, 8,192 and 65,536 rows).  A block that reaches the f32 level
-    within ``iters`` passes is polished exactly as by ``_polish_block``.
-    Returns (w, resid, Q, passes run, settled)."""
-    run, norm = _polish_operator(raw, A_solve, route, which, device)
-    w, resid, Qp = run(Q, iters, depth)
-    extra = 0
-    while extra < _SETTLE_PASSES and not _settled(resid, keep, norm):
-        with span("polish.settle", extra):
-            w, resid, Qp = run(Qp, 1, 2 * depth)
-        extra += 1
-    return w, resid, Qp, max(int(iters), 1) + extra, _settled(resid, keep, norm)
-
-
-def _polish_block(raw, A_solve, route, Q, which, iters: int, depth: int, device="cuda"):
-    """f64 Rayleigh-Ritz polish of a converged block in the caller's
-    frame (``_polish_operator``'s passes).  Returns (w desc-in-solve-frame,
-    resid, Q (n, k) tensor) — w/resid aligned with Q's columns."""
-    return _polish_operator(raw, A_solve, route, which, device)[0](Q, iters, depth)
-
-
-def _polish_operator(raw, A_solve, route, which, device="cuda"):
-    """The polish against the f64 operator of the first branch that
-    applies, built once (counted in ``POLISH_PREP``; the ``polish.prep``
-    span's args name it), as ``(run(Q, iters, depth), ||A||'s bound)``,
-    the bound the largest absolute row sum:
-
-    * ``device_upcast``: the solve operator's own DIA planes (already
-      negated for ``which="smallest"``) upcast on their device, when
-      they hold the raw matrix's values exactly (``_planes_hold_raw``),
-      or when there is no raw matrix (representation-limited if the
-      planes were stored f32);
-    * ``host_dia``: f64 DIA planes of an unpermuted raw (host) matrix
-      with at most ``_POLISH_MAX_DIAGS`` diagonals, built on the device
-      from its CSR arrays (``ops.formats.dia_from_scipy``);
-    * ``host_csr``: the native CSR SpMM in f64 on the host
-      (``ops._spmm_native``): general sparsity, permuted routes.
-
-    The device is the solve operator's, or ``device`` when there is none
-    (the distributed solve polishes the gathered block against the raw
-    matrix alone)."""
-    import scipy.sparse as sp
-
-    from ca_lanczos_tpu_torch.ops.formats import dia_from_scipy
-    from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
-
-    if isinstance(A_solve, DiaMatrix) and (raw is None or _planes_hold_raw(raw, A_solve, route)):
-        POLISH_PREP["device_upcast"] += 1
-        with span("polish.prep", "device_upcast"):
-            A64 = DiaMatrix(data=A_solve.data.double(), offsets=A_solve.offsets)
-        return _device_run(A64)
-    dev = A_solve.device if A_solve is not None else torch.device(device)
-    if raw is not None and (route is None or route.perm is None):
-        with span("polish.prep", "host_dia"):
-            csr = sp.csr_matrix(raw)
-            if not csr.has_canonical_format:  # sum duplicates in f64, in a copy
-                csr = csr.astype(np.float64)
-            # None above the limit: scattered sparsity would materialize O(n^2) planes
-            A64 = dia_from_scipy(csr, max_diags=_POLISH_MAX_DIAGS, waste_cap=np.inf,
-                                 dtype=np.float64, device=dev)
-            if A64 is not None and which == "smallest":
-                A64.data.neg_()
-        if A64 is not None:
-            POLISH_PREP["host_dia"] += 1
-            return _device_run(A64)
-    from ca_lanczos_tpu_torch.ops._spmm_native import CsrMatmul
-
-    POLISH_PREP["host_csr"] += 1
-    with span("polish.prep", "host_csr"):
-        csr = sp.csr_matrix(raw).astype(np.float64)
-        mm = CsrMatmul(csr)
-        norm = float(np.max(abs(csr).sum(axis=1)))
-    matvec = (lambda Z: -mm(Z)) if which == "smallest" else mm
-
-    def run(Q, iters, depth):
-        from ca_lanczos_tpu_torch.solvers.polish import rayleigh_ritz_polish_host
-
-        w, resid, Qp = rayleigh_ritz_polish_host(matvec, Q, iters=iters, depth=depth)
-        return w, resid, torch.from_numpy(Qp)
-
-    return run, norm
-
-
-def _device_run(A64):
-    """(``run(Q, iters, depth)``: the device polish against the DIA
-    planes ``A64``; their largest absolute row sum)."""
-
-    def run(Q, iters, depth):
-        from ca_lanczos_tpu_torch.solvers.polish import rayleigh_ritz_polish
-
-        return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
-
-    return run, float(A64.data.abs().sum(dim=0).max())
-
-
-def _planes_hold_raw(raw, A, route) -> bool:
-    """True when the route's DIA planes ``A``, upcast to f64, are bit for
-    bit the f64 planes of ``raw``: an unpermuted route, a raw dtype the
-    planes hold exactly, no duplicate entries left in ``raw`` that the
-    route summed in the planes' dtype (the f64 build sums them in f64),
-    and at most ``_POLISH_MAX_DIAGS`` diagonals."""
-    import scipy.sparse as sp
-
-    planes = {torch.float32: np.float32, torch.float64: np.float64}.get(A.data.dtype)
-    dtype = raw.dtype if sp.issparse(raw) else np.asarray(raw).dtype
-    return (route is not None and route.perm is None and planes is not None
-            and np.can_cast(dtype, planes, "safe")
-            and getattr(raw, "nnz", route.nnz) == route.nnz
-            and len(A.offsets) <= _POLISH_MAX_DIAGS)

@@ -3,7 +3,7 @@
 Counterpart of ``ca_lanczos_tpu/ops/_spmm_native.py``.  ``CsrMatmul(a)(X)``
 is ``a @ X`` for a scipy CSR ``a`` and a dense f64 ``X`` of shape (n,) or
 (n, k), OpenMP over rows on ``torch.get_num_threads()`` threads: the apply
-of the host polish (``harness.auto._polish_block``), where scipy's product
+of the host polish (``solvers.polish.f64_operator``), where scipy's product
 runs on one thread.  Each entry is summed in scipy's order, so the result
 equals scipy's ``a @ X`` bit for bit.
 

@@ -127,16 +127,18 @@ def dist_solve_auto(
     """The distributed ``solve_auto``: route ``a`` for row sharding, probe
     the spectrum to order the drivers (``recommend_solver``: clustered tops
     go implicit-first), run the ladder until a driver converges
-    (``harness.auto._escalate``), decode Q_conv through any RCM
+    (``harness.auto.escalate``), decode Q_conv through any RCM
     permutation, and with ``polish``/``over_lock`` polish the gathered
-    block in f64 against the raw matrix.  SPMD (module docstring).
+    block in f64 against the raw matrix (``solvers.polish.polish_block``
+    on rank 0).  SPMD (module docstring).
     ``stage_seconds`` holds route, probe, solve and polish (rank 0's
     clock, each stage ending with the device synchronised)."""
-    from ca_lanczos_tpu_torch.harness.auto import _escalate, _ladder, _polish_settled
+    from ca_lanczos_tpu_torch.harness.auto import escalate, ladder
     from ca_lanczos_tpu_torch.harness.matrix_info import recommend_solver
     from ca_lanczos_tpu_torch.parallel.dist_irl import dist_impl_restarted_ca_lanczos
     from ca_lanczos_tpu_torch.parallel.driver import root_eval
     from ca_lanczos_tpu_torch.parallel.restarted import dist_restarted_ca_lanczos
+    from ca_lanczos_tpu_torch.solvers.polish import polish_block
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -176,10 +178,8 @@ def dist_solve_auto(
     with stage("probe", times, mesh.device):
         first = root_eval(mesh, a, lambda Ad: recommend_solver(
             Ad, n_wanted=cfg.n_wanted, probe_steps=probe_steps)["driver"])
-    second = ("impl_restarted_ca_lanczos" if first == "restarted_ca_lanczos"
-              else "restarted_ca_lanczos")
     with stage("solve", times, mesh.device):
-        res, solver, escalated = _escalate(_run, _ladder(cfg, first, second, max_lanczos))
+        res, solver, escalated = escalate(_run, ladder(cfg, first, max_lanczos))
     solver = "dist_" + solver
     Q = res.Q_conv
     if route is not None and route.perm is not None and Q is not None:
@@ -191,14 +191,13 @@ def dist_solve_auto(
         with stage("polish", times, mesh.device):
             out = None
             if dist.get_rank() == 0:
-                w, pr, Qp, passes, settled = _polish_settled(
+                w, pr, Q, passes, settled = polish_block(
                     raw, None, route, Q, which, polish, polish_depth, n_want0,
                     device=mesh.device)
                 out = (w, pr, passes, settled)
-            w, pr, passes, settled = comm.broadcast_object(out, mesh.device)
-        keep = min(n_want0, len(w))
-        eigs, presid = w[:keep], pr[:keep]
-        Q = Qp[:, :keep] if dist.get_rank() == 0 else None
+            else:
+                Q = None
+            eigs, presid, passes, settled = comm.broadcast_object(out, mesh.device)
         solver = solver + f"+polish{polish}"
         converged = converged and settled
     elif dist.get_rank() != 0:

@@ -236,7 +236,6 @@ def phase_j_rank(solves: List[dict], bound: Dict[str, float]) -> List[dict]:
     import dataclasses
 
     from ca_lanczos_tpu_torch.config import Basis, LanczosConfig
-    from ca_lanczos_tpu_torch.harness.auto import _polish_block
     from ca_lanczos_tpu_torch.parallel import comm
     from ca_lanczos_tpu_torch.parallel.auto import dist_solve_auto, route_dist_operator
     from ca_lanczos_tpu_torch.parallel.distributed import DistDia
@@ -244,6 +243,7 @@ def phase_j_rank(solves: List[dict], bound: Dict[str, float]) -> List[dict]:
     from ca_lanczos_tpu_torch.parallel.restarted import dist_restarted_ca_lanczos
     from ca_lanczos_tpu_torch.parallel.step import newton_coeffs
     from ca_lanczos_tpu_torch.solvers.ca_lanczos import build_basis_matrix
+    from ca_lanczos_tpu_torch.solvers.polish import f64_operator
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -282,8 +282,8 @@ def phase_j_rank(solves: List[dict], bound: Dict[str, float]) -> List[dict]:
             ts = time.perf_counter()
             pol = None
             if dist.get_rank() == 0:
-                w, pr, _ = _polish_block(a, None, None, res.Q_conv, "largest", 10, 4,
-                                         device=mesh.device)
+                w, pr, _ = f64_operator(a, None, None, "largest",
+                                        device=mesh.device)[0](res.Q_conv, 10, 4)
                 pol = (w[:10], pr[:10])
             eigs, presid = comm.broadcast_object(pol, mesh.device)
             stages["polish"] = time.perf_counter() - ts

@@ -21,6 +21,12 @@ Dropped TPU-only workarounds: the row-major (k, n) panels (TPU lanes pad
 the minor dimension; the card does not) and the byte-budgeted f64 chunks
 (a (11M, 65) f64 panel is 5.7 GB, which fits 80 GB).  Panels here are
 (n, k) like the host variant.
+
+This module owns every decision of the polish that ``solve_auto`` and
+``dist_solve_auto`` run: which f64 operator it runs against
+(``f64_operator``, counted in ``POLISH_PREP``), when it stops
+(``_SETTLE``, ``_SETTLE_PASSES``) and which pairs it returns
+(``polish_block``).
 """
 
 from __future__ import annotations
@@ -29,20 +35,28 @@ from typing import Tuple
 
 import numpy as np
 import scipy.linalg as sla
+import scipy.sparse as sp
 import torch
 
-from ca_lanczos_tpu_torch.ops.qr import _chol_safe, _rsolve
+from ca_lanczos_tpu_torch.ops.formats import dia_from_scipy
+from ca_lanczos_tpu_torch.ops.qr import cholqr2
 from ca_lanczos_tpu_torch.ops.spmv import DiaMatrix
 from ca_lanczos_tpu_torch.utils.spans import span
 
 DEPTH = 4  # the passes' default residual expansion depth
-
-
-def _cholqr2_f32(Z: torch.Tensor) -> torch.Tensor:
-    for _ in range(2):
-        L = _chol_safe(Z.T @ Z)
-        Z = _rsolve(Z, L.T)
-    return Z
+_POLISH_MAX_DIAGS = 48  # most diagonals the device polish takes
+# A vector stored in f32 carries up to u = 2^-24 of rounding in each entry,
+# so its f64 residual cannot fall much below u ||A|| (||A|| bounded by the
+# largest absolute row sum).  Polished pairs settle at 0.1-1.1 u ||A|| on
+# the impurity and Ising chains (32,768-65,536 rows, CPU); a slow polish
+# reads 29 u ||A|| after six passes (tests/test_torch_auto.py's smallest
+# end).  A block that came from the solve without a level it needed reads
+# 370-480 u ||A|| after ten (the Ising chain at 65,536 rows on the CPU and
+# at 4,194,304 on the card): above _SETTLE u ||A|| the polish goes on.
+_SETTLE = 32.0
+_SETTLE_PASSES = 8  # most further passes, each at twice the depth
+# one per f64_operator call, by the branch that built its f64 operator
+POLISH_PREP = {"device_upcast": 0, "raw_dia": 0, "host_csr": 0}
 
 
 def _unit_cols(B: torch.Tensor) -> torch.Tensor:
@@ -63,7 +77,7 @@ def _polish_pass(A64, A32, X: torch.Tensor, k: int, depth: int, final: bool):
     """One block-Krylov RR pass on the f32 (n, k) block X; returns
     (w (k,) f64 Rayleigh quotients, resid (k,) f64, Q (n, k) f32)."""
     with span("polish.orth"):
-        Q = _cholqr2_f32(X.float())
+        Q = cholqr2(X.float())[0]
     _, _, B = _rq64(A64, Q)
 
     stages = [Q]
@@ -72,7 +86,7 @@ def _polish_pass(A64, A32, X: torch.Tensor, k: int, depth: int, final: bool):
             for _ in range(2):  # CGS2 against previous stages (f32)
                 for Sx in stages:
                     B = B - Sx @ (Sx.T @ B)
-            B = _cholqr2_f32(_unit_cols(B))
+            B = cholqr2(_unit_cols(B))[0]
         stages.append(B)
         if d < depth - 1:
             # Krylov expansion stages ride the f32 twin: only the FIRST
@@ -103,7 +117,7 @@ def _polish_pass(A64, A32, X: torch.Tensor, k: int, depth: int, final: bool):
                          device=Z.device)
     ZU = Z @ Uk
     with span("polish.orth"):
-        Q = _cholqr2_f32(ZU)
+        Q = cholqr2(ZU)[0]
     w, resid, _ = _rq64(A64, Q)
     return w.cpu().numpy(), resid.cpu().numpy(), Q
 
@@ -115,7 +129,7 @@ def rayleigh_ritz_polish(A64, X, iters: int = 3, depth: int = DEPTH
     A64: a DiaMatrix with FLOAT64 planes that hold the matrix's values
     exactly: the solve's own planes upcast on the device when they hold
     the raw matrix bit for bit (an f32 raw matrix in f32 planes), else
-    planes built from the raw matrix in f64 (``harness.auto._polish_block``)
+    planes built from the raw matrix in f64 (``f64_operator``)
     — never an f32 rounding of an f64 matrix.
     X: (n, k) converged block, any float dtype, natural row order.
     Returns (eigs desc (k,) f64, true absolute residuals ||Ax - wx|| (k,)
@@ -192,3 +206,105 @@ def rayleigh_ritz_polish_host(matvec, X, iters: int = 3, depth: int = 4
             w = torch.sum(Q * AQ, dim=0)
     resid = torch.linalg.norm(AQ - Q * w[None, :], dim=0)
     return w.numpy(), resid.numpy(), Q.numpy()
+
+
+def f64_operator(raw, A_solve, route, which, device="cuda"):
+    """The polish against the f64 operator of the first branch that
+    applies, built once (counted in ``POLISH_PREP``; the ``polish.prep``
+    span's args name it), as ``(run(Q, iters, depth), ||A||'s bound)``,
+    the bound the largest absolute row sum; ``run`` returns (w desc in the
+    solve frame, resid, Q (n, k) tensor), w/resid aligned with Q's columns:
+
+    * ``device_upcast``: the solve operator's own DIA planes (already
+      negated for ``which="smallest"``) upcast on their device, when
+      they hold the raw matrix's values exactly (``_planes_hold_raw``),
+      or when there is no raw matrix (representation-limited if the
+      planes were stored f32);
+    * ``raw_dia``: f64 DIA planes of an unpermuted raw (host) matrix
+      with at most ``_POLISH_MAX_DIAGS`` diagonals, built on the device
+      from its CSR arrays (``ops.formats.dia_from_scipy``);
+    * ``host_csr``: the native CSR SpMM in f64 on the host
+      (``ops._spmm_native``): general sparsity, permuted routes.
+
+    The device is the solve operator's, or ``device`` when there is none
+    (the distributed solve polishes the gathered block against the raw
+    matrix alone)."""
+    A64 = None
+    if isinstance(A_solve, DiaMatrix) and (raw is None or _planes_hold_raw(raw, A_solve, route)):
+        POLISH_PREP["device_upcast"] += 1
+        with span("polish.prep", "device_upcast"):
+            A64 = DiaMatrix(data=A_solve.data.double(), offsets=A_solve.offsets)
+    elif raw is not None and (route is None or route.perm is None):
+        dev = A_solve.device if A_solve is not None else torch.device(device)
+        with span("polish.prep", "raw_dia"):
+            csr = sp.csr_matrix(raw)
+            if not csr.has_canonical_format:  # sum duplicates in f64, in a copy
+                csr = csr.astype(np.float64)
+            # None above the limit: scattered sparsity would materialize O(n^2) planes
+            A64 = dia_from_scipy(csr, max_diags=_POLISH_MAX_DIAGS, waste_cap=np.inf,
+                                 dtype=np.float64, device=dev)
+            if A64 is not None and which == "smallest":
+                A64.data.neg_()
+        if A64 is not None:
+            POLISH_PREP["raw_dia"] += 1
+    if A64 is not None:
+        def run(Q, iters, depth):
+            return rayleigh_ritz_polish(A64, Q, iters=iters, depth=depth)
+
+        return run, float(A64.data.abs().sum(dim=0).max())
+    from ca_lanczos_tpu_torch.ops._spmm_native import CsrMatmul
+
+    POLISH_PREP["host_csr"] += 1
+    with span("polish.prep", "host_csr"):
+        csr = sp.csr_matrix(raw).astype(np.float64)
+        mm = CsrMatmul(csr)
+        norm = float(np.max(abs(csr).sum(axis=1)))
+    matvec = (lambda Z: -mm(Z)) if which == "smallest" else mm
+
+    def run(Q, iters, depth):
+        w, resid, Qp = rayleigh_ritz_polish_host(matvec, Q, iters=iters, depth=depth)
+        return w, resid, torch.from_numpy(Qp)
+
+    return run, norm
+
+
+def _planes_hold_raw(raw, A, route) -> bool:
+    """True when the route's DIA planes ``A``, upcast to f64, are bit for
+    bit the f64 planes of ``raw``: an unpermuted route, a raw dtype the
+    planes hold exactly, no duplicate entries left in ``raw`` that the
+    route summed in the planes' dtype (the f64 build sums them in f64),
+    and at most ``_POLISH_MAX_DIAGS`` diagonals."""
+    planes = {torch.float32: np.float32, torch.float64: np.float64}.get(A.data.dtype)
+    dtype = raw.dtype if sp.issparse(raw) else np.asarray(raw).dtype
+    return (route is not None and route.perm is None and planes is not None
+            and np.can_cast(dtype, planes, "safe")
+            and getattr(raw, "nnz", route.nnz) == route.nnz
+            and len(A.offsets) <= _POLISH_MAX_DIAGS)
+
+
+def _settled(resid, keep: int, norm: float) -> bool:
+    """True when each of the first ``keep`` pairs' residual lies within
+    ``_SETTLE`` u ``norm`` (the f32 level, see ``_SETTLE``)."""
+    return bool(np.all(np.asarray(resid)[:keep] <= _SETTLE * 2.0**-24 * norm))
+
+
+def polish_block(raw, A_solve, route, Q, which, iters: int, depth: int, keep: int,
+                 device="cuda"):
+    """f64 Rayleigh-Ritz polish of a converged block ``Q`` in the caller's
+    frame: ``iters`` passes against ``f64_operator``'s operator, then at
+    most ``_SETTLE_PASSES`` further passes at twice ``depth`` while one of
+    the first ``keep`` pairs has not settled (``_settled``): at ``depth``
+    the Ising chain's unsettled blocks took three times the passes and
+    stopped three times higher (CPU, 8,192 and 65,536 rows).  Returns the
+    first ``keep`` pairs, (w desc in the solve frame, resid, Q), then the
+    passes run and whether those pairs settled."""
+    run, norm = f64_operator(raw, A_solve, route, which, device)
+    w, resid, Qp = run(Q, iters, depth)
+    extra = 0
+    while extra < _SETTLE_PASSES and not _settled(resid, keep, norm):
+        with span("polish.settle", extra):
+            w, resid, Qp = run(Qp, 1, 2 * depth)
+        extra += 1
+    settled = _settled(resid, keep, norm)
+    keep = min(keep, len(w))
+    return w[:keep], resid[:keep], Qp[:, :keep], max(int(iters), 1) + extra, settled

@@ -102,13 +102,12 @@ def profiled(torch, label: str, fn, wall: float):
 def configuration(torch, label: str, a, prefer: str, driver: str = "fused",
                   max_lanczos: int = 32, **route_kw) -> None:
     from ca_lanczos_tpu_torch.config import LanczosConfig
-    from ca_lanczos_tpu_torch.harness import auto
     from ca_lanczos_tpu_torch.harness.matrix_info import recommend_solver
     from ca_lanczos_tpu_torch.ops.formats import dia_from_scipy, make_operator
     from ca_lanczos_tpu_torch.solvers.fused_restarted import fused_restarted_ca_lanczos
     from ca_lanczos_tpu_torch.solvers.implicitly_restarted import impl_restarted_ca_lanczos
     from ca_lanczos_tpu_torch.solvers.restarted import restarted_ca_lanczos
-    from ca_lanczos_tpu_torch.solvers.polish import rayleigh_ritz_polish
+    from ca_lanczos_tpu_torch.solvers.polish import f64_operator, rayleigh_ritz_polish
 
     n = a.shape[0]
     a_solve = a if driver == "irl" else a.astype(np.float32)  # F runs in float64
@@ -150,7 +149,7 @@ def configuration(torch, label: str, a, prefer: str, driver: str = "fused",
         print(f"{label} device polish unprofiled: {wall:.3f}s")
         profiled(torch, f"{label} device polish", polish, wall)
     else:
-        _, t = timed(torch, lambda: auto._polish_block(a, A, route, Q, "largest", 10, 4))
+        _, t = timed(torch, lambda: f64_operator(a, A, route, "largest")[0](Q, 10, 4))
         print(f"{label} host polish: {t:.3f}s")
     torch.cuda.empty_cache()
 

@@ -33,7 +33,7 @@ Phase 1  each kernel against its plain PyTorch version on the card, f32 and
 Phase S  the host polish's SpMM: ``ops._spmm_native.CsrMatmul`` (the
          OpenMP product of ``csrc/host_spmm.cpp``, built with g++ in phase
          0) against scipy's ``a @ X`` on phase C's matrix in f64, as
-         ``harness.auto._polish_block`` passes it (the f32 CSR upcast;
+         ``solvers.polish.f64_operator`` passes it (the f32 CSR upcast;
          11,010,048 rows, 84,156,726 nnz), at k = 13 (the polish's Q and B
          panels) and k = 65 (its depth-4 Z panel): per column j, max_i
          |Y_ij - (a @ X)_ij| <= 1e-15 max|a| max_i |X_ij| (bit for bit

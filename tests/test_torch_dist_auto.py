@@ -8,7 +8,7 @@ general-sparsity route: a bounded-bandwidth non-DIA matrix routes to
 "pell" as in JAX, partitions as a DistPell and solves with JAX's label,
 restart count and eigenvalues.  Also the CLI's ``solve
 --mesh 4`` (and ``--hosts 2``) against the dense oracle, and the f64 polish of
-a block with no solve operator (``harness.auto._polish_block`` with
+a block with no solve operator (``solvers.polish.f64_operator`` with
 ``A_solve=None``, the branch the distributed solve takes).
 """
 
@@ -286,17 +286,17 @@ class TestDistMixedPrecision:
 
 class TestPolishWithoutSolveOperator:
     def test_polish_block_takes_the_device(self):
-        """``_polish_block(raw, None, ...)``: no solve operator, so the
+        """``f64_operator(raw, None, ...)``: no solve operator, so the
         device comes from the argument (it used to read A_solve.device and
         raise AttributeError)."""
-        from ca_lanczos_tpu_torch.harness.auto import _polish_block
+        from ca_lanczos_tpu_torch.solvers.polish import f64_operator
 
         from scipy.sparse.linalg import eigsh
 
         _, V = eigsh(A_POL, k=4, which="LA")
         Q = np.linalg.qr(V + 1e-3 * np.random.default_rng(4).standard_normal((1024, 4)))[0]
-        w, resid, Qp = _polish_block(A_POL, None, None, torch.as_tensor(Q), "largest", 6, 4,
-                                     device="cpu")
+        w, resid, Qp = f64_operator(A_POL, None, None, "largest",
+                                    device="cpu")[0](torch.as_tensor(Q), 6, 4)
         assert Qp.device.type == "cpu" and Qp.shape == (1024, 4)
         np.testing.assert_allclose(np.sort(w)[::-1], _oracle(A_POL, 4), rtol=1e-9)
         assert np.all(np.isfinite(resid))

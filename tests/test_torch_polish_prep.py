@@ -1,6 +1,6 @@
-"""PyTorch port: the f64 operator of the polish (``harness.auto._polish_block``).
+"""PyTorch port: the f64 operator of the polish (``solvers.polish.f64_operator``).
 
-Each branch that builds it (``device_upcast``, ``host_dia``, ``host_csr``)
+Each branch that builds it (``device_upcast``, ``raw_dia``, ``host_csr``)
 is held to the build it replaced, scipy's DIA conversion of the raw matrix
 in f64 (kept here as the oracle): the same offsets and the same planes, bit
 for bit.  The branch is read from ``POLISH_PREP``, and ``solve_auto`` is
@@ -106,11 +106,11 @@ RAW = {
 CASES = [
     ("f32", "dia", "device_upcast"),
     ("f64", "dia", "device_upcast"),
-    ("i64", "dia", "host_dia"),  # int64 does not cast safely to f32 planes
+    ("i64", "dia", "raw_dia"),  # int64 does not cast safely to f32 planes
     ("stored_zero", "dia", "device_upcast"),
-    ("coo_duplicates", "dia", "host_dia"),
-    ("csr_duplicates", "dia", "host_dia"),
-    ("f32", "none", "host_dia"),
+    ("coo_duplicates", "dia", "raw_dia"),
+    ("csr_duplicates", "dia", "raw_dia"),
+    ("f32", "none", "raw_dia"),
     ("diags48", "dia", "device_upcast"),
     ("diags49", "dia", "host_csr"),
     ("f32", "ilv", "host_csr"),
@@ -158,9 +158,9 @@ def test_polish_operator_is_the_old_build(captured, raw_name, solve_op, branch, 
         if which == "smallest":
             A = negate_operator(A)
     Q = torch.as_tensor(np.linalg.qr(np.random.default_rng(1).standard_normal((N, 3)))[0])
-    before = dict(auto.POLISH_PREP)
-    auto._polish_block(raw, A, route, Q, which, 2, 2, device="cpu")
-    assert {k: auto.POLISH_PREP[k] - before[k] for k in before} == {
+    before = dict(polish_mod.POLISH_PREP)
+    polish_mod.f64_operator(raw, A, route, which, device="cpu")[0](Q, 2, 2)
+    assert {k: polish_mod.POLISH_PREP[k] - before[k] for k in before} == {
         k: int(k == branch) for k in before}
     if branch == "host_csr":
         assert "A64" not in captured
@@ -183,7 +183,7 @@ def test_the_route_sums_a_noncanonical_csr_in_place():
     build of it equals the upcast planes."""
     raw = RAW["csr_duplicates"]()
     A, route = make_operator(raw, prefer="dia", device="cpu")
-    assert raw.nnz == route.nnz and auto._planes_hold_raw(raw, A, route)
+    assert raw.nnz == route.nnz and polish_mod._planes_hold_raw(raw, A, route)
     offsets, planes = _old_build(raw, "largest")
     assert A.offsets == offsets and torch.equal(A.data.double(), planes)
 
@@ -202,18 +202,18 @@ def test_solve_auto_polishes_on_the_solve_planes(monkeypatch):
         return contextlib.nullcontext()
 
     monkeypatch.setattr(sp, "dia_matrix", refuse)
-    monkeypatch.setattr(auto, "span", span)
+    monkeypatch.setattr(polish_mod, "span", span)
     n = 4096  # tests/test_torch_auto.py's two-stage operator, in f32
     d = np.linspace(1.0, 90.0, n)
     d[-5:] = np.linspace(95.0, 100.0, 5)
     off = np.random.default_rng(0).standard_normal(n - 1) * 1e-3
     a = sp.diags([off, d, off], [-1, 0, 1], format="csr").astype(np.float32)
-    before = dict(auto.POLISH_PREP)
+    before = dict(polish_mod.POLISH_PREP)
     res = auto.solve_auto(a, np.random.default_rng(1).standard_normal(n), 32,
                           LanczosConfig(n_wanted=5, s=8, tol=1e-4, max_restarts=100),
                           engine="fused", polish=2, over_lock=3, prefer="dia", device="cpu")
-    assert {k: auto.POLISH_PREP[k] - before[k] for k in before} == {
-        "device_upcast": 1, "host_dia": 0, "host_csr": 0}
+    assert {k: polish_mod.POLISH_PREP[k] - before[k] for k in before} == {
+        "device_upcast": 1, "raw_dia": 0, "host_csr": 0}
     assert ("polish.prep", "device_upcast") in named
     assert [n for n, _ in named].count("polish.prep") == 1
     a64 = a.astype(np.float64)
@@ -259,7 +259,7 @@ def _numpy_dia(a, max_diags, waste_cap, dtype):
 @pytest.mark.parametrize("dtype", [None, np.float64])
 def test_dia_on_device_is_dia_from_scipy(name, dtype):
     """The planes ``dia_from_scipy`` builds on its device (the polish's
-    ``host_dia`` branch, the routes on the host) are the old numpy
+    ``raw_dia`` branch, the routes on the host) are the old numpy
     build's, bit for bit, and refused under the same limits."""
     from ca_lanczos_tpu_torch.ops.formats import dia_from_scipy
 

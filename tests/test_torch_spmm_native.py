@@ -1,6 +1,6 @@
 """PyTorch port, ops/_spmm_native.py (the host polish's row-parallel CSR
 SpMM) against scipy's ``a @ X`` and the JAX package's ``CsrMatmul``, and
-``harness.auto._polish_block``'s host branch against JAX's.
+``solvers.polish.f64_operator``'s host branch against JAX's ``_polish_block``.
 
 Tolerances: the products are exact.  Each entry is summed over its row's
 entries in their stored order, as scipy does, with no fused multiply-add,
@@ -22,8 +22,8 @@ import torch
 
 from ca_lanczos_tpu.harness.auto import _polish_block as j_polish_block
 from ca_lanczos_tpu.ops import _spmm_native as jspmm
-from ca_lanczos_tpu_torch.harness.auto import _polish_block
 from ca_lanczos_tpu_torch.ops import _spmm_native as spmm
+from ca_lanczos_tpu_torch.solvers.polish import f64_operator
 
 N = 3000
 KS = [None, 1, 13, 64, 65, 130]  # None: a vector of shape (n,)
@@ -157,8 +157,8 @@ def test_polish_host_branch_smallest_matches_jax(case):
     evals, evecs = np.linalg.eigh(raw.toarray())
     Q0 = evecs[:, :k] + 1e-3 * np.random.default_rng(5).standard_normal((raw.shape[0], k))
     before = spmm.APPLIES["csr_spmm_host"]
-    w, resid, Q = _polish_block(raw, None, route, torch.as_tensor(Q0), "smallest", iters,
-                                depth, device="cpu")
+    w, resid, Q = f64_operator(raw, None, route, "smallest",
+                               device="cpu")[0](torch.as_tensor(Q0), iters, depth)
     assert spmm.APPLIES["csr_spmm_host"] == before + 1 + iters * (depth + 1)
     wj, rj, Qj = j_polish_block(raw, None, route, Q0, "smallest", iters, depth)
     scale = float(np.abs(evals).max())

@@ -16,7 +16,6 @@ import pytest
 import torch
 
 from ca_lanczos_tpu_torch.ops import cuda_trsm, qr
-from ca_lanczos_tpu_torch.solvers.polish import _cholqr2_f32
 
 N = 3 * 256 + 37  # not a multiple of any row run of the kernel
 KS = (1, 8, 9, 13, 20, 26, 64)
@@ -128,11 +127,11 @@ def test_dispatch_rule_and_count(shape, dtype, fits):
 
 
 def test_cholqr_passes_go_through_rsolve():
-    """cholqr2 and the polish's CholQR2 both solve through _rsolve: two
-    counted solves each."""
+    """cholqr2 (the polish's CholQR2 too) solves through _rsolve: two
+    counted solves a call."""
     X = _block(N, 13, torch.float32, seed=5)
     before = qr.RSOLVE["library"]
-    Q = _cholqr2_f32(X)
+    Q = qr.cholqr2(X)[0]
     Q2, R2 = qr.cholqr2(X)
     assert qr.RSOLVE["library"] == before + 4
     eye = torch.eye(13)

@@ -4,14 +4,14 @@ free-fermion reference (``benchmark/reference/tfim_free_fermion.py``).
 
 * ``solve_auto`` on the PELL route with the ``polish10`` traffic's
   arguments: the values against the exact levels, the vectors by
-  Davis and Kahan's residual bound, the polish on host-built f64 DIA
-  planes (``POLISH_PREP["host_dia"]``);
+  Davis and Kahan's residual bound, the polish on f64 DIA planes built
+  from the raw matrix (``POLISH_PREP["raw_dia"]``);
 * the route's encode: a ``route.encode`` span around the host encode and
   a ``route.copy`` span with the encoder's choice as its args,
   ``ops.pell.ENCODED`` counting one encoding per PELL route, and the
   planes bit for bit the JAX package's encoder's;
 * the polish goes on while a wanted pair has not settled to the f32 level
-  (``harness.auto._polish_settled``), and ``solve_auto`` reports
+  (``solvers.polish.polish_block``), and ``solve_auto`` reports
   ``converged`` False for a pair that does not: forced by a locked block
   with one wanted level missing.
 """
@@ -29,6 +29,7 @@ from ca_lanczos_tpu.ops import pell as jpell
 from ca_lanczos_tpu_torch.config import LanczosConfig
 from ca_lanczos_tpu_torch.harness import auto
 from ca_lanczos_tpu_torch.ops import formats, pell
+from ca_lanczos_tpu_torch.solvers import polish
 from ca_lanczos_tpu_torch.solvers.fused_restarted import FusedRestartedResult
 from ca_lanczos_tpu_torch.utils import spans
 from tests.test_torch_pell import pin_encoder
@@ -56,7 +57,7 @@ def chain(L, gauge=None):
 
 def settle_bound(a):
     """``_SETTLE`` u ||A||, ||A|| bounded by the largest absolute row sum."""
-    return auto._SETTLE * 2.0**-24 * float(np.max(abs(a.astype(np.float64)).sum(axis=1)))
+    return polish._SETTLE * 2.0**-24 * float(np.max(abs(a.astype(np.float64)).sum(axis=1)))
 
 
 def polish10(a, seed, **kw):
@@ -71,10 +72,10 @@ def polish10(a, seed, **kw):
 @pytest.mark.parametrize("seed", [2**31 + 1, 7])
 def test_solve_auto_on_the_pell_route_meets_the_free_fermion_levels(seed):
     a = chain(13, seed)
-    before = dict(auto.POLISH_PREP)
+    before = dict(polish.POLISH_PREP)
     res = polish10(a, seed, prefer="pell")
-    assert auto.POLISH_PREP["host_dia"] == before["host_dia"] + 1
-    assert auto.POLISH_PREP["device_upcast"] == before["device_upcast"]
+    assert polish.POLISH_PREP["raw_dia"] == before["raw_dia"] + 1
+    assert polish.POLISH_PREP["device_upcast"] == before["device_upcast"]
     assert res.route.format == "pell" and res.converged and res.n_restarts <= 200
     assert res.polish_passes >= POLISH10["polish"]
     ref = REF.top_pairs(a, 10)
@@ -130,21 +131,21 @@ def locked_block(a, missing=9, k=13):
 def test_polish_goes_on_until_the_wanted_pairs_settle(monkeypatch):
     a = chain(11)
     _, Q = locked_block(a)
-    w, resid, Q1 = auto._polish_block(a, None, None, Q, "largest", 10, 4, device="cpu")
+    w, resid, Q1 = polish.f64_operator(a, None, None, "largest", device="cpu")[0](Q, 10, 4)
     bound = settle_bound(a)
     assert resid[9] > 10 * bound and np.all(resid[:9] <= bound)  # the fault
     ref = REF.top_pairs(a, 10)
     got = REF.judge(ref, w[:10], Q1[:, :10].double().numpy(), np.zeros(10))
     assert got["eig_err"] > 1e-7 and got["vec_err"] > 1e-1
-    w2, r2, Q2, passes, settled = auto._polish_settled(a, None, None, Q, "largest", 10, 4, 10,
-                                                       device="cpu")
-    assert settled and 10 < passes <= 10 + auto._SETTLE_PASSES
+    w2, r2, Q2, passes, settled = polish.polish_block(a, None, None, Q, "largest", 10, 4, 10,
+                                                      device="cpu")
+    assert settled and 10 < passes <= 10 + polish._SETTLE_PASSES
     assert np.all(r2[:10] <= bound)
     got = REF.judge(ref, w2[:10], Q2[:, :10].double().numpy(), np.zeros(10))
     assert got["eig_err"] < 1e-10 and got["vec_err"] < 1e-2
-    monkeypatch.setattr(auto, "_SETTLE_PASSES", 0)
-    *_, passes, settled = auto._polish_settled(a, None, None, Q, "largest", 10, 4, 10,
-                                               device="cpu")
+    monkeypatch.setattr(polish, "_SETTLE_PASSES", 0)
+    *_, passes, settled = polish.polish_block(a, None, None, Q, "largest", 10, 4, 10,
+                                              device="cpu")
     assert passes == 10 and not settled
 
 
@@ -158,7 +159,7 @@ def test_solve_auto_reports_an_unsettled_pair(monkeypatch):
     monkeypatch.setattr(auto, "_run", locked)
     res = polish10(a, 5, prefer="pell")
     assert res.converged and res.polish_passes > 10
-    monkeypatch.setattr(auto, "_SETTLE_PASSES", 0)
+    monkeypatch.setattr(polish, "_SETTLE_PASSES", 0)
     res = polish10(a, 5, prefer="pell")
     assert not res.converged and res.polish_passes == 10
     assert res.polish_resid[9] > settle_bound(a)
@@ -167,8 +168,6 @@ def test_solve_auto_reports_an_unsettled_pair(monkeypatch):
 def test_a_deeper_pass_gives_the_bits_of_one_built_in_one_piece(monkeypatch):
     """A pass deeper than ``polish.DEPTH`` applies the f64 operator k
     columns at a time (memory); each column is the same product."""
-    from ca_lanczos_tpu_torch.solvers import polish
-
     a = chain(10)
     _, Q = locked_block(a)
     A64 = formats.dia_from_scipy(a, max_diags=48, waste_cap=np.inf, dtype=np.float64,
