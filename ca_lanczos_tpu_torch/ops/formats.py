@@ -10,8 +10,9 @@ device":
                        halo bound — exactly where the TPU package upgrades
                        on a device backend) else DiaMatrix (K1/K2)
   3. windowed nnz   -> PellMatrix (general-sparsity kernels K4/K5); the
-                       encoder (``PellMatrix.from_scipy``, the JAX
-                       package's) decides, and its window-overflow
+                       encoder (``PellMatrix.encode``, the JAX package's,
+                       or its unit planes built on a CUDA device,
+                       ``ops.pell_card``) decides, and its window-overflow
                        ValueError sends the matrix on to 4
   4. scattered      -> RCM reorder, then re-route the permuted matrix
                        through 2-3 (the route carries the permutation)
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ca_lanczos_tpu_torch.ops.pell import PellMatrix
+from ca_lanczos_tpu_torch.ops.pell_card import encode_for_route
 from ca_lanczos_tpu_torch.ops.spmv import DenseMatrix, DiaMatrix, EllMatrix
 
 Routable = Union[DenseMatrix, DiaMatrix, EllMatrix, PellMatrix]  # and IlvDiaMatrix
@@ -373,12 +375,14 @@ def make_operator(
         Ail, perm_il, _ = _maybe_ilv(Ah, csr, notes, True, device)
         return Ail, OperatorRoute("ilv", perm_il, ["forced ilv"] + notes, nnz, n_orig=n)
     def pell(m):
-        """The PELL planes of ``m``: encoded on the host (span
-        ``route.encode``, its args the encoding asked for), then copied to
+        """The PELL planes of ``m``: encoded on the card when ``device`` is
+        CUDA and the planes are unit, else on the host (span
+        ``route.encode``, its args the encoding asked for;
+        ``ops.pell_card.encode_for_route``), then made a PellMatrix on
         ``device`` (``route.copy``, its args the encoder's choice)."""
         with span("route.encode", encoding):
-            planes = PellMatrix.encode(m, tile=tile, encoding=encoding,
-                                       max_windows=max_windows, sw=sw)
+            planes = encode_for_route(m, device, tile=tile, encoding=encoding,
+                                      max_windows=max_windows, sw=sw)
         with span("route.copy", f"{planes.enc} n_win={planes.n_win} "
                                 f"k_slots={planes.k_slots} {planes.encoder}"):
             return planes.to(device)

@@ -55,15 +55,26 @@ def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-# one count per ``PellMatrix.encode`` call, by the encoding it chose
+# one count per ``PellMatrix.encode`` call (and per card encode,
+# ``ops.pell_card``), by the encoding it chose
 ENCODED = {"unit": 0, "grouped": 0, "grouped4": 0}
+# one count per PELL encode of ``ops.formats.make_operator``'s route, by
+# where it ran (``ops.pell_card.encode_for_route``)
+ENCODED_ON = {"card": 0, "host": 0}
+
+# The window width's search (``PellMatrix.encode``'s ``sw``): one window
+# up to SW_MAX elements, else the cheapest of the candidates.
+SW_MAX, SW_MULTI = 65536, 16384
+SW_CANDIDATES = (1024, 2048, 4096, 8192, SW_MULTI, 32768)
 
 
 @dataclasses.dataclass(frozen=True)
 class PellPlanes:
-    """A PELL encoding on the host: the numpy planes and statics that
-    ``PellMatrix.encode`` computes, and which encoder ran (``"native"``
-    or ``"numpy"``).  ``to`` copies them to a device as a PellMatrix.
+    """A PELL encoding short of a PellMatrix: the planes and statics that
+    ``PellMatrix.encode`` computes, and which encoder ran: numpy arrays on
+    the host (``"native"`` or ``"numpy"``), or tensors on the device that
+    ``ops.pell_card.encode_for_route`` built them on (``"card"``).  ``to``
+    puts them on a device as a PellMatrix.
 
     The encode stops here, short of a PellMatrix, so that the copy can be
     timed apart from it without moving work to the host.  A PellMatrix
@@ -86,7 +97,9 @@ class PellPlanes:
 
     def to(self, device) -> "PellMatrix":
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            return a.to(device)
 
         return PellMatrix(vals=put(self.vals), lidx=put(self.lidx), cbase=put(self.cbase),
                           span_row=put(self.span_row), n=self.n, tile=self.tile,
@@ -290,7 +303,6 @@ class PellMatrix:
         dtype = np.float32 if data.dtype != np.float64 else data.dtype
 
         # Pass 1: per-tile greedy window cover of the touched chunks.
-        SW_MAX, SW_MULTI = 65536, 16384
         need = 0
         for t in range(ntiles):
             lo_r, hi_r = t * tile, min((t + 1) * tile, n)
@@ -321,7 +333,7 @@ class PellMatrix:
                 # tile), making the span stream ~40% of kernel traffic
                 # (round-5; see BENCHMARKS.md).
                 best = None
-                cands = (1024, 2048, 4096, 8192, SW_MULTI, 32768)
+                cands = SW_CANDIDATES
                 flat = np.concatenate(tile_chunks)
                 lens = np.asarray([len(ch) for ch in tile_chunks])
                 hi = np.cumsum(lens)

@@ -21,7 +21,7 @@ import jax.numpy as jnp
 from ca_lanczos_tpu.ops import _pell_native as jpell_native
 from ca_lanczos_tpu.ops import formats as jformats
 from ca_lanczos_tpu.ops import pell as jpell
-from ca_lanczos_tpu_torch.ops import _pell_native, formats, pell
+from ca_lanczos_tpu_torch.ops import _pell_native, formats, pell, pell_card
 from ca_lanczos_tpu_torch.ops.spmv import spmv
 from ca_lanczos_tpu_torch.utils.interop import operator_from_numpy
 
@@ -147,6 +147,28 @@ def test_encoder_planes_match_jax(name, enc):
     x = _x(a.shape[0])
     y = pell.pell_apply(T, torch.as_tensor(x)).numpy()
     np.testing.assert_allclose(y, a @ x, rtol=1e-12, atol=1e-12 * np.abs(a @ x).max())
+
+
+@pytest.mark.parametrize("enc", ["unit", "auto"])
+@pytest.mark.parametrize("name", sorted(PATTERNS))
+def test_card_encoder_planes_match_jax(name, enc, monkeypatch):
+    """The route's encode on the operator's device (``ops.pell_card``, on
+    CPU tensors) gives the JAX package's planes: "unit" always on the
+    card; "auto" on the card where it is certain to pick unit, else on
+    the host, both packages on the numpy encoder (``pin_encoder``)."""
+    pin_encoder(monkeypatch, "numpy")
+    a, kw = _csr(name)
+    J = jpell.PellMatrix.from_scipy(a, encoding=enc, device=False, native=False, **kw)
+    before = pell.ENCODED_ON["card"]
+    T = pell_card.encode_for_route(a, "cpu", encoding=enc, on="cpu", **kw)
+    on_card = pell.ENCODED_ON["card"] == before + 1
+    assert on_card == (T.encoder == "card")
+    assert on_card or enc == "auto"
+    assert J.enc == "unit" or not on_card
+    for f in FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(J, f)), pell._np(getattr(T, f)),
+                                      err_msg=f)
+    assert tuple(getattr(J, f) for f in STATICS) == tuple(getattr(T, f) for f in STATICS)
 
 
 @pytest.mark.parametrize("enc", ["unit", "grouped", "auto"])
