@@ -36,7 +36,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ca_lanczos_tpu_torch.ops.pell import PellMatrix
+from ca_lanczos_tpu_torch.ops.pell import LANES, SLOT_FILL, PellMatrix
 from ca_lanczos_tpu_torch.ops.pell_card import encode_for_route
 from ca_lanczos_tpu_torch.ops.spmv import DenseMatrix, DiaMatrix, EllMatrix
 
@@ -379,13 +379,18 @@ def make_operator(
         CUDA and the planes are unit, else on the host (span
         ``route.encode``, its args the encoding asked for;
         ``ops.pell_card.encode_for_route``), then made a PellMatrix on
-        ``device`` (``route.copy``, its args the encoder's choice)."""
+        ``device`` (``route.copy``, its args the encoder's choice), its
+        stored values and walked slot entries counted in
+        ``ops.pell.SLOT_FILL``."""
         with span("route.encode", encoding):
             planes = encode_for_route(m, device, tile=tile, encoding=encoding,
                                       max_windows=max_windows, sw=sw)
         with span("route.copy", f"{planes.enc} n_win={planes.n_win} "
                                 f"k_slots={planes.k_slots} {planes.encoder}"):
-            return planes.to(device)
+            A = planes.to(device)
+            SLOT_FILL["nnz"] += A.nnz
+            SLOT_FILL["walked"] += int(A.slot_count.clamp(max=A.k_slots).sum()) * LANES
+            return A
 
     if prefer == "pell":
         return pell(csr), OperatorRoute("pell", None, ["forced pell"], nnz)

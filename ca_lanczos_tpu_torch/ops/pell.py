@@ -61,6 +61,10 @@ ENCODED = {"unit": 0, "grouped": 0, "grouped4": 0}
 # one count per PELL encode of ``ops.formats.make_operator``'s route, by
 # where it ran (``ops.pell_card.encode_for_route``)
 ENCODED_ON = {"card": 0, "host": 0}
+# summed over the route's PellMatrices: the stored values, and the plane
+# entries K4 and K5 walk (each 128-row group's ``slot_count`` slots of
+# 128 lanes); one host read a route
+SLOT_FILL = {"nnz": 0, "walked": 0}
 
 # The window width's search (``PellMatrix.encode``'s ``sw``): one window
 # up to SW_MAX elements, else the cheapest of the candidates.

@@ -250,11 +250,12 @@ def grouped_bounds(plan: UnitPlan) -> Dict[str, int]:
     return out
 
 
-def unit_is_certain(plan: UnitPlan) -> bool:
+def unit_is_certain(plan: UnitPlan, bounds: Optional[Dict[str, int]] = None) -> bool:
     """True when ``_pick_encoding("auto", ...)`` picks unit whatever the
-    grouped plans give: each geometry's cost at its lower bound is no less
-    than the unit K (the pick needs a strictly lower cost)."""
-    bounds = grouped_bounds(plan)
+    grouped plans give: each geometry's cost at its lower bound
+    (``bounds``, by default ``grouped_bounds(plan)``) is no less than the
+    unit K (the pick needs a strictly lower cost)."""
+    bounds = grouped_bounds(plan) if bounds is None else bounds
     return all(_ENC_SLOT_COST[g] * bounds[g] >= _ENC_SLOT_COST["unit"] * plan.k_slots
                for g in bounds)
 
@@ -299,16 +300,28 @@ def encode_for_route(a, device, tile: int = 1024, sw: Optional[int] = None,
     "cpu") when ``a`` has entries and ``encoding`` is "unit", or "auto"
     certain to pick unit; else on the host.  An "auto" request the bound
     cannot settle pays the plan (its index copy, sort and bound) before
-    the host encodes."""
+    the host encodes.  Spans: ``route.encode.plan`` around the plan and
+    its bound, ``route.encode.host`` around the host encode (its args the
+    encoding asked for, and the unit K and grouped bounds of a plan made
+    before it: a span's args are fixed when it opens)."""
+    from ca_lanczos_tpu_torch.utils.spans import span  # utils imports ops
+
     if on is None and torch.device(device).type == "cuda":
         on = device
+    planned = ""
     if on is not None and encoding in ("unit", "auto") and a.nnz:
         csr = _csr(a)
-        plan = plan_unit(csr, on, tile=tile, sw=sw, max_windows=max_windows)
-        if encoding == "unit" or unit_is_certain(plan):
+        with span("route.encode.plan", encoding):
+            plan = plan_unit(csr, on, tile=tile, sw=sw, max_windows=max_windows)
+            bounds = grouped_bounds(plan) if encoding == "auto" else None
+        if bounds is None or unit_is_certain(plan, bounds):
             ENCODED_ON["card"] += 1
             return emit_unit(csr, plan)
+        planned = f" unit K={plan.k_slots} bounds " + " ".join(
+            f"{g}={k}" for g, k in bounds.items())
         del plan
-    planes = PellMatrix.encode(a, tile=tile, encoding=encoding, max_windows=max_windows, sw=sw)
+    with span("route.encode.host", encoding + planned):
+        planes = PellMatrix.encode(a, tile=tile, encoding=encoding, max_windows=max_windows,
+                                   sw=sw)
     ENCODED_ON["host"] += 1
     return planes
